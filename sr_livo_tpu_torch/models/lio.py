@@ -1,0 +1,289 @@
+"""LIO iterated ESIKF: point-to-plane registration against the voxel map.
+
+Port of `sr_livo_tpu/models/lio.py` (the reference optimizer,
+src/optimize.cpp): `build_residuals` vectorizes buildPlaneResiduals
+(optimize.cpp:18-131) over all keypoints (kNN gather + the plane-fit
+kernel), and `iekf_update` runs updateIEKF (optimize.cpp:133-314) as a
+Python loop with the same information-form Kalman gain and SO(3)/S2
+covariance-reset Jacobians.  The plane rows go through
+`ops.plane_fit`: the CUDA kernel on CUDA tensors, the plain PyTorch
+version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from sr_livo_tpu_torch.models import eskf as eskf_mod
+from sr_livo_tpu_torch.models.eskf import EskfState
+from sr_livo_tpu_torch.ops import plane_fit
+from sr_livo_tpu_torch.ops import voxel_map as vm
+from sr_livo_tpu_torch.utils import lie
+
+
+class ResidualBatch(NamedTuple):
+    h_x: torch.Tensor        # (Nk, 6) weighted jacobian rows
+    h: torch.Tensor          # (Nk,) weighted point-to-plane distances
+    valid: torch.Tensor      # (Nk,) bool
+    num: torch.Tensor        # () int32 residual count
+
+
+class IekfSummary(NamedTuple):
+    success: torch.Tensor        # () bool
+    num_residuals: torch.Tensor  # () int32
+    iterations: torch.Tensor     # () int32
+
+
+def _lam(weight_alpha: float, weight_neighborhood: float):
+    lam_sum = abs(weight_alpha) + abs(weight_neighborhood)
+    return abs(weight_alpha) / lam_sum, abs(weight_neighborhood) / lam_sum
+
+
+def _knn_found(voxel_map, world, *, voxel_size, max_neighbors, max_probe,
+               nb_voxels, threshold_capacity):
+    neighbors, nb_ok, _ = vm.knn(
+        voxel_map, world, voxel_size=voxel_size,
+        max_neighbors=max_neighbors, max_probe=max_probe,
+        nb_voxels=nb_voxels, threshold_capacity=threshold_capacity)
+    n_found = torch.sum(nb_ok, dim=1, dtype=torch.int32)
+    return neighbors, n_found
+
+
+def build_residuals(voxel_map: vm.VoxelMap, keypts_raw, keypts_valid, q, t,
+                    last_trans, r_il, t_il, *, size_voxel_map: float,
+                    nb_voxels_visited: int, max_number_neighbors: int,
+                    min_number_neighbors: int, threshold_voxel_capacity,
+                    power_planarity: float, max_dist_to_plane: float,
+                    weight_alpha: float, weight_neighborhood: float,
+                    max_num_residuals: int, max_probe: int) -> ResidualBatch:
+    """One residual-construction pass (buildPlaneResiduals semantics):
+    the kNN association and the full plane row (kernel entry
+    `plane_rows`) at pose (q, t), then the residual cap."""
+    lam_w, lam_nb = _lam(weight_alpha, weight_neighborhood)
+    location = keypts_raw @ r_il.T + t_il                    # IMU frame
+    world = lie.quat_rotate(q.expand(keypts_raw.shape[0], 4), location) + t
+    neighbors, n_found = _knn_found(
+        voxel_map, world, voxel_size=size_voxel_map,
+        max_neighbors=max_number_neighbors, max_probe=max_probe,
+        nb_voxels=nb_voxels_visited,
+        threshold_capacity=threshold_voxel_capacity)
+    h_x, h, good = plane_fit.plane_rows(
+        neighbors, n_found, world, location, lie.quat_to_rot(q), last_trans,
+        keypts_valid, lam_w=lam_w, lam_nb=lam_nb,
+        power_planarity=power_planarity, max_dist=max_dist_to_plane,
+        min_neighbors=min_number_neighbors)
+    return _cap_residuals(h_x, h, good, max_num_residuals)
+
+
+def chunked_assoc(voxel_map, world, n_valid: int, *, voxel_size,
+                  max_neighbors, max_probe, nb_voxels, threshold_capacity,
+                  chunk):
+    """kNN + association (kernel entry `plane_assoc`) over only the valid
+    PREFIX of `world`, in `chunk`-row slices; a ragged last slice starts
+    early and recomputes a few rows with identical results.
+
+    Returns (normal (Q, 3), a2d (Q,), closest (Q, 3), n_found (Q,)); rows
+    beyond the processed prefix are zero (n_found 0 gates them
+    downstream)."""
+    q = world.shape[0]
+    chunk = min(chunk, q)
+    f = dict(dtype=world.dtype, device=world.device)
+    nrm = torch.zeros((q, 3), **f)
+    a2 = torch.zeros((q,), **f)
+    cl = torch.zeros((q, 3), **f)
+    nf = torch.zeros((q,), dtype=torch.int32, device=world.device)
+    for i in range((n_valid + chunk - 1) // chunk):
+        off = min(i * chunk, q - chunk)
+        s = slice(off, off + chunk)
+        neighbors, nfc = _knn_found(
+            voxel_map, world[s], voxel_size=voxel_size,
+            max_neighbors=max_neighbors, max_probe=max_probe,
+            nb_voxels=nb_voxels, threshold_capacity=threshold_capacity)
+        nrm[s], a2[s], cl[s] = plane_fit.plane_assoc(neighbors, nfc)
+        nf[s] = nfc
+    return nrm, a2, cl, nf
+
+
+def _cap_residuals(h_x, h, good, max_num_residuals) -> ResidualBatch:
+    """Residual cap in keypoint order (optimize.cpp:107)."""
+    if max_num_residuals > 0:
+        prefix = torch.cumsum(good.to(torch.int32), 0)
+        good = good & (prefix <= max_num_residuals)
+        h_x = torch.where(good[:, None], h_x, torch.zeros_like(h_x))
+        h = torch.where(good, h, torch.zeros_like(h))
+    return ResidualBatch(h_x=h_x, h=h, valid=good,
+                         num=torch.sum(good, dtype=torch.int32))
+
+
+def _reset_jacobian(d_so3, so3_dg, b_x) -> torch.Tensor:
+    """Block-diagonal 17x17 error-reset Jacobian: identity except
+    J_so3 = I - 0.5 [d_so3]x on the attitude block and
+    J_s2 = I + 0.5 B^T [so3_dg]x B on the gravity block
+    (optimize.cpp:213-214, 278-279)."""
+    f = dict(dtype=d_so3.dtype, device=d_so3.device)
+    j = torch.eye(17, **f)
+    j[3:6, 3:6] = torch.eye(3, **f) - 0.5 * lie.skew(d_so3)
+    j[15:17, 15:17] = torch.eye(2, **f) + 0.5 * (
+        b_x.T @ lie.skew(so3_dg) @ b_x)
+    return j
+
+
+def _error_vs_prediction(state: EskfState, pred: EskfState):
+    """d_x (17,) between the current state and the sweep-start prediction,
+    plus the S2 helper quantities (optimize.cpp:172-218)."""
+    d_p = state.p - pred.p
+    d_so3 = lie.quat_to_so3(lie.quat_mul(lie.quat_conj(pred.q), state.q))
+    d_v = state.v - pred.v
+    d_ba = state.ba - pred.ba
+    d_bg = state.bg - pred.bg
+    so3_dg = lie.log_so3(lie.rot_from_v1_to_v2(pred.g, state.g))
+    b_x_pred = lie.s2_bx(pred.g)
+    d_g = b_x_pred.T @ so3_dg
+    d_x = torch.cat([d_p, d_so3, d_v, d_ba, d_bg, d_g])
+    return d_x, d_so3, so3_dg, b_x_pred
+
+
+def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
+                keypts_valid, last_trans, r_il, t_il,
+                threshold_voxel_capacity, *, size_voxel_map: float,
+                nb_voxels_visited: int, max_number_neighbors: int,
+                min_number_neighbors: int, power_planarity: float,
+                max_dist_to_plane: float, weight_alpha: float,
+                weight_neighborhood: float, max_num_residuals: int,
+                max_probe: int, max_iters: int,
+                threshold_translation_norm: float,
+                threshold_orientation_norm: float, laser_point_cov: float,
+                check_convergence: bool = True,
+                cache_association: bool = False, query_chunk: int = 0,
+                seed_q=None, seed_p=None):
+    """Iterated EKF measurement update (updateIEKF, optimize.cpp:133-314).
+
+    Runs `max_iters + 1` iterations at most (the reference loops
+    i = -1 .. max_num_iter-1), re-associating keypoints against the map each
+    iteration, with early exit on |dt| / |dtheta| convergence or when an
+    iteration has fewer than `min_number_neighbors` residuals.  The final
+    covariance folds the gain and reset Jacobians as
+    P+ = J (P - K_x P[0:6,:]) J^T.
+
+    With `cache_association=True` the kNN search and plane PCA run ONCE at
+    the starting pose (kernel entry `plane_assoc`); iterations recompute
+    only the pose-dependent distances/Jacobians.  Otherwise each iteration
+    runs `build_residuals` (kernel entry `plane_rows`).
+
+    `seed_q`/`seed_p` override the STARTING iterate pose while `state`
+    stays the prediction prior (the INIT_CONSTANT_VELOCITY predictor,
+    lioOptimization.cpp:895-990).
+
+    Each iteration reads two flags back to the host to decide whether to
+    go on.  Returns (state, IekfSummary).
+    """
+    pred = state
+    if seed_q is not None:
+        state = state._replace(q=seed_q, p=seed_p)
+    lam_w, lam_nb = _lam(weight_alpha, weight_neighborhood)
+    icp = dict(size_voxel_map=size_voxel_map,
+               nb_voxels_visited=nb_voxels_visited,
+               max_number_neighbors=max_number_neighbors,
+               min_number_neighbors=min_number_neighbors,
+               threshold_voxel_capacity=threshold_voxel_capacity,
+               power_planarity=power_planarity,
+               max_dist_to_plane=max_dist_to_plane,
+               weight_alpha=weight_alpha,
+               weight_neighborhood=weight_neighborhood,
+               max_num_residuals=max_num_residuals, max_probe=max_probe)
+
+    if cache_association:
+        location = keypts_raw @ r_il.T + t_il               # IMU frame
+        n = location.shape[0]
+        world0 = lie.quat_rotate(state.q.expand(n, 4), location) + state.p
+        assoc_kw = dict(voxel_size=size_voxel_map,
+                        max_neighbors=max_number_neighbors,
+                        max_probe=max_probe, nb_voxels=nb_voxels_visited,
+                        threshold_capacity=threshold_voxel_capacity)
+        if query_chunk and query_chunk < n:
+            # keypoints are prefix-compacted (frame.voxel_subsample), so the
+            # association only computes the occupied prefix
+            normal0, a2d, closest, n_found = chunked_assoc(
+                voxel_map, world0, int(torch.sum(keypts_valid)),
+                chunk=query_chunk, **assoc_kw)
+        else:
+            neighbors, n_found = _knn_found(voxel_map, world0, **assoc_kw)
+            normal0, a2d, closest = plane_fit.plane_assoc(neighbors, n_found)
+
+        def residuals(s: EskfState) -> ResidualBatch:
+            world = lie.quat_rotate(s.q.expand(n, 4), location) + s.p
+            h_x, h, good = plane_fit.plane_rows_from_assoc(
+                normal0, a2d, closest, n_found, world, location,
+                lie.quat_to_rot(s.q), last_trans, keypts_valid,
+                lam_w=lam_w, lam_nb=lam_nb, power_planarity=power_planarity,
+                max_dist=max_dist_to_plane,
+                min_neighbors=min_number_neighbors)
+            return _cap_residuals(h_x, h, good, max_num_residuals)
+    else:
+        def residuals(s: EskfState) -> ResidualBatch:
+            return build_residuals(voxel_map, keypts_raw, keypts_valid, s.q,
+                                   s.p, last_trans, r_il, t_il, **icp)
+
+    f = dict(dtype=state.cov.dtype, device=state.cov.device)
+    eye17 = torch.eye(17, **f)
+    s, it, ok = state, 0, True
+    n_res = torch.zeros((), dtype=torch.int32, device=f["device"])
+    cov_final = state.cov
+    while True:
+        res = residuals(s)
+        enough = res.num >= min_number_neighbors
+
+        d_x_cur, d_so3, so3_dg, b_x_pred = _error_vs_prediction(s, pred)
+        j_old = _reset_jacobian(d_so3, so3_dg, b_x_pred)
+        d_x_new = j_old @ d_x_cur
+        cov = j_old @ state.cov @ j_old.T
+
+        hth = res.h_x.T @ res.h_x                            # (6, 6)
+        temp = torch.linalg.inv(cov / laser_point_cov)
+        temp[0:6, 0:6] += hth
+        temp_inv = torch.linalg.inv(temp)
+        k_h = temp_inv[:, 0:6] @ (res.h_x.T @ res.h)         # (17,)
+        k_x = torch.zeros((17, 17), **f)
+        k_x[:, 0:6] = temp_inv[:, 0:6] @ hth
+        d_x = -k_h + (k_x - eye17) @ d_x_new
+
+        # Divergence guard (optimize.cpp:248-251): skip the injection.
+        diverged = (torch.linalg.norm(d_x[0:3]) > 100.0) | (
+            lie.angular_distance_deg(d_x[3:6]) > 100.0)
+        apply = enough & ~diverged
+        g_before = s.g
+        s = eskf_mod.observe(s, torch.where(apply, d_x,
+                                            torch.zeros_like(d_x)))
+        if check_convergence:
+            converged = ((torch.linalg.norm(d_x[0:3])
+                          < threshold_translation_norm)
+                         & (lie.angular_distance_deg(d_x[3:6])
+                            < threshold_orientation_norm)
+                         & apply)
+        else:
+            converged = torch.zeros((), dtype=torch.bool, device=f["device"])
+
+        # Final covariance candidate from this iteration's quantities
+        # (optimize.cpp:272-309): J from the applied d_x and the
+        # pre-injection gravity.
+        b_x_before = lie.s2_bx(g_before)
+        j_new = _reset_jacobian(d_x[3:6], b_x_before @ d_x[15:17],
+                                b_x_before)
+        cov_final = torch.where(apply, j_new @ (cov - k_x @ cov) @ j_new.T,
+                                cov_final)
+        it += 1
+        n_res = res.num
+        ok, conv = (bool(v) for v in torch.stack([enough, converged]).tolist())
+        if not (it < max_iters + 1 and not conv and ok):
+            break
+
+    if ok:
+        s = s._replace(cov=cov_final)
+    else:
+        s = state
+    summary = IekfSummary(
+        success=torch.tensor(ok, device=f["device"]), num_residuals=n_res,
+        iterations=torch.tensor(it, dtype=torch.int32, device=f["device"]))
+    return s, summary

@@ -1,0 +1,137 @@
+"""Parity of the port's voxel-hash map (sr_livo_tpu_torch.ops.voxel_map)
+with the JAX package's: the same insert sequence leaves `keys`, `sig`,
+`counts`, `point_ids` and `points` identical bit for bit, the hashes are
+bit-exact on coordinates that overflow int32, and kNN returns the same
+neighbour sets, counts and distances (ties may be ordered differently,
+so distances are compared as sorted rows to float32 round-off)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sr_livo_tpu.ops import voxel_map as jvm
+from sr_livo_tpu_torch import convert
+from sr_livo_tpu_torch.ops import voxel_map as tvm
+
+RNG = np.random.RandomState(7)
+
+
+def _assert_maps_equal(tmap, jmap):
+    got = convert.voxel_map_to_numpy(tmap)
+    for name in tvm.VoxelMap._fields:
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(jmap,
+                                                                    name)),
+                                      err_msg=name)
+
+
+def _batches():
+    """Planes (many points per voxel: capacity and min-distance bite),
+    scattered points with negative coordinates, a repeat of an earlier
+    batch, and far points whose hashes overflow int32."""
+    u = RNG.uniform(-6, 6, (3000, 2))
+    floor = np.c_[u[:, 0], u[:, 1], np.zeros(3000)]
+    wall = np.c_[np.full(3000, -4.0), u[:, 0], u[:, 1] * 0.5 + 1]
+    scatter = RNG.uniform(-9, 9, (1500, 3))
+    far = RNG.uniform(-3e4, 3e4, (400, 3))
+    return [b.astype(np.float32) for b in (floor, wall, scatter, floor[:800],
+                                           far)]
+
+
+@pytest.fixture(scope="module")
+def maps():
+    """Both packages' maps after the same insert sequence (small table so
+    probe chains collide), with the accepted masks of every batch."""
+    kw = dict(voxel_size=1.0, min_distance=0.05, max_probe=8)
+    jm = jvm.make_map(1 << 12, 20)
+    tm = tvm.make_map(1 << 12, 20)
+    accepted = []
+    next_id = 0
+    for i, b in enumerate(_batches()):
+        valid = RNG.rand(b.shape[0]) < 0.95
+        ids = np.arange(next_id, next_id + b.shape[0], dtype=np.int32)
+        next_id += b.shape[0]
+        extra = dict(budget=1024) if i == 2 else dict(gate_chunk=512)
+        jm, ja = jvm.insert(jm, jnp.asarray(b), jnp.asarray(valid),
+                            point_ids=jnp.asarray(ids), **kw, **extra)
+        tm, ta = tvm.insert(tm, torch.as_tensor(b), torch.as_tensor(valid),
+                            point_ids=torch.as_tensor(ids), **kw, **extra)
+        accepted.append((np.asarray(ja), ta.numpy()))
+    return jm, tm, accepted
+
+
+def test_insert_sequence_bit_exact(maps):
+    jm, tm, accepted = maps
+    _assert_maps_equal(tm, jm)
+    for ja, ta in accepted:
+        np.testing.assert_array_equal(ta, ja)
+    assert int(tvm.map_size(tm)) == int(jvm.map_size(jm)) > 1000
+
+
+@pytest.mark.parametrize("fn", ["voxel_hash", "voxel_sig"])
+def test_hashes_bit_exact_on_overflowing_coords(fn):
+    coords = np.concatenate([
+        RNG.randint(-2 ** 31, 2 ** 31 - 1, (2000, 3)),
+        RNG.randint(-40000, 40000, (2000, 3)),
+        [[2 ** 31 - 1, -2 ** 31, 0], [-1, -1, -1]]]).astype(np.int32)
+    args = (1 << 18,) if fn == "voxel_hash" else ()
+    j = np.asarray(getattr(jvm, fn)(jnp.asarray(coords), *args))
+    t = getattr(tvm, fn)(torch.as_tensor(coords), *args).numpy()
+    np.testing.assert_array_equal(t.astype(np.int64), j.astype(np.int64))
+    if fn == "voxel_sig":
+        assert t.dtype == np.int32 and t.min() >= 0
+
+
+def test_voxel_coords_truncate_like_jax():
+    pts = RNG.uniform(-50, 50, (3000, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tvm.voxel_coords(torch.as_tensor(pts), 0.6).numpy(),
+        np.asarray(jvm.voxel_coords(jnp.asarray(pts), 0.6)))
+
+
+def test_lookup_matches_jax(maps):
+    jm, tm, _ = maps
+    keys = np.asarray(jm.keys)
+    used = keys[keys[:, 0] != jvm.EMPTY]
+    coords = np.concatenate([used[:500], used[:200] + 1,
+                             RNG.randint(-20, 20, (300, 3))]).astype(np.int32)
+    j = np.asarray(jvm.lookup(jm, jnp.asarray(coords), 8))
+    t = tvm.lookup(tm, torch.as_tensor(coords), 8).numpy()
+    np.testing.assert_array_equal(t, j)
+    assert (t[:500] >= 0).all()
+
+
+@pytest.mark.parametrize("nb_voxels,threshold", [(1, 1), (2, 1), (1, 5)])
+def test_knn_matches_jax(maps, nb_voxels, threshold):
+    jm, tm, _ = maps
+    q = np.concatenate([RNG.uniform(-6, 6, (300, 3)),
+                        RNG.uniform(-30, 30, (50, 3))]).astype(np.float32)
+    kw = dict(voxel_size=1.0, max_neighbors=20, max_probe=8,
+              nb_voxels=nb_voxels)
+    jn, jok, jd = jvm.knn(jm, jnp.asarray(q), threshold_capacity=threshold,
+                          **kw)
+    tn, tok, td = tvm.knn(tm, torch.as_tensor(q),
+                          threshold_capacity=threshold, **kw)
+    jn, jok, jd = np.asarray(jn), np.asarray(jok), np.asarray(jd)
+    tn, tok, td = tn.numpy(), tok.numpy(), td.numpy()
+    np.testing.assert_array_equal(tok.sum(1), jok.sum(1))
+    assert tok.sum() > 1000
+    np.testing.assert_allclose(np.sort(np.where(tok, td, np.inf), 1),
+                               np.sort(np.where(jok, jd, np.inf), 1),
+                               atol=1e-6, rtol=0)
+    for i in range(q.shape[0]):
+        a = {tuple(p) for p in tn[i][tok[i]]}
+        b = {tuple(p) for p in jn[i][jok[i]]}
+        if a != b:
+            # only a tie at the k-th distance may swap a neighbour
+            kth = np.sort(jd[i][jok[i]])[-1]
+            diff = np.array(sorted(a ^ b), np.float32)
+            dd = np.linalg.norm(diff - q[i], axis=1)
+            np.testing.assert_allclose(dd, kth, atol=1e-6)
+
+
+def test_convert_roundtrip(maps):
+    jm, tm, _ = maps
+    back = convert.voxel_map_from_numpy(jm)
+    _assert_maps_equal(back, jm)
+    again = convert.voxel_map_from_numpy(convert.voxel_map_to_numpy(tm))
+    _assert_maps_equal(again, jm)
