@@ -2,12 +2,12 @@
 
 Port of `sr_livo_tpu/models/lio.py` (the reference optimizer,
 src/optimize.cpp): `build_residuals` vectorizes buildPlaneResiduals
-(optimize.cpp:18-131) over all keypoints (kNN gather + the plane-fit
-kernel), and `iekf_update` runs updateIEKF (optimize.cpp:133-314) as a
-Python loop with the same information-form Kalman gain and SO(3)/S2
-covariance-reset Jacobians.  The plane rows go through
-`ops.plane_fit`: the CUDA kernel on CUDA tensors, the plain PyTorch
-version on CPU tensors.
+(optimize.cpp:18-131) over all keypoints, and `iekf_update` runs
+updateIEKF (optimize.cpp:133-314) as a Python loop with the same
+information-form Kalman gain and SO(3)/S2 covariance-reset Jacobians.
+The kNN association and the plane rows go through `ops.plane_fit`'s
+fused entries: one CUDA kernel launch on CUDA tensors, the plain PyTorch
+kNN and plane fit on CPU tensors.
 """
 
 from __future__ import annotations
@@ -41,16 +41,6 @@ def _lam(weight_alpha: float, weight_neighborhood: float):
     return abs(weight_alpha) / lam_sum, abs(weight_neighborhood) / lam_sum
 
 
-def _knn_found(voxel_map, world, *, voxel_size, max_neighbors, max_probe,
-               nb_voxels, threshold_capacity):
-    neighbors, nb_ok, _ = vm.knn(
-        voxel_map, world, voxel_size=voxel_size,
-        max_neighbors=max_neighbors, max_probe=max_probe,
-        nb_voxels=nb_voxels, threshold_capacity=threshold_capacity)
-    n_found = torch.sum(nb_ok, dim=1, dtype=torch.int32)
-    return neighbors, n_found
-
-
 def build_residuals(voxel_map: vm.VoxelMap, keypts_raw, keypts_valid, q, t,
                     last_trans, r_il, t_il, *, size_voxel_map: float,
                     nb_voxels_visited: int, max_number_neighbors: int,
@@ -60,50 +50,18 @@ def build_residuals(voxel_map: vm.VoxelMap, keypts_raw, keypts_valid, q, t,
                     max_num_residuals: int, max_probe: int) -> ResidualBatch:
     """One residual-construction pass (buildPlaneResiduals semantics):
     the kNN association and the full plane row (kernel entry
-    `plane_rows`) at pose (q, t), then the residual cap."""
+    `knn_plane_rows`) at pose (q, t), then the residual cap."""
     lam_w, lam_nb = _lam(weight_alpha, weight_neighborhood)
     location = keypts_raw @ r_il.T + t_il                    # IMU frame
     world = lie.quat_rotate(q.expand(keypts_raw.shape[0], 4), location) + t
-    neighbors, n_found = _knn_found(
-        voxel_map, world, voxel_size=size_voxel_map,
+    h_x, h, good = plane_fit.knn_plane_rows(
+        voxel_map, world, location, lie.quat_to_rot(q), last_trans,
+        keypts_valid, threshold_voxel_capacity, voxel_size=size_voxel_map,
         max_neighbors=max_number_neighbors, max_probe=max_probe,
-        nb_voxels=nb_voxels_visited,
-        threshold_capacity=threshold_voxel_capacity)
-    h_x, h, good = plane_fit.plane_rows(
-        neighbors, n_found, world, location, lie.quat_to_rot(q), last_trans,
-        keypts_valid, lam_w=lam_w, lam_nb=lam_nb,
+        nb_voxels=nb_voxels_visited, lam_w=lam_w, lam_nb=lam_nb,
         power_planarity=power_planarity, max_dist=max_dist_to_plane,
         min_neighbors=min_number_neighbors)
     return _cap_residuals(h_x, h, good, max_num_residuals)
-
-
-def chunked_assoc(voxel_map, world, n_valid: int, *, voxel_size,
-                  max_neighbors, max_probe, nb_voxels, threshold_capacity,
-                  chunk):
-    """kNN + association (kernel entry `plane_assoc`) over only the valid
-    PREFIX of `world`, in `chunk`-row slices; a ragged last slice starts
-    early and recomputes a few rows with identical results.
-
-    Returns (normal (Q, 3), a2d (Q,), closest (Q, 3), n_found (Q,)); rows
-    beyond the processed prefix are zero (n_found 0 gates them
-    downstream)."""
-    q = world.shape[0]
-    chunk = min(chunk, q)
-    f = dict(dtype=world.dtype, device=world.device)
-    nrm = torch.zeros((q, 3), **f)
-    a2 = torch.zeros((q,), **f)
-    cl = torch.zeros((q, 3), **f)
-    nf = torch.zeros((q,), dtype=torch.int32, device=world.device)
-    for i in range((n_valid + chunk - 1) // chunk):
-        off = min(i * chunk, q - chunk)
-        s = slice(off, off + chunk)
-        neighbors, nfc = _knn_found(
-            voxel_map, world[s], voxel_size=voxel_size,
-            max_neighbors=max_neighbors, max_probe=max_probe,
-            nb_voxels=nb_voxels, threshold_capacity=threshold_capacity)
-        nrm[s], a2[s], cl[s] = plane_fit.plane_assoc(neighbors, nfc)
-        nf[s] = nfc
-    return nrm, a2, cl, nf
 
 
 def _cap_residuals(h_x, h, good, max_num_residuals) -> ResidualBatch:
@@ -168,9 +126,10 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
     P+ = J (P - K_x P[0:6,:]) J^T.
 
     With `cache_association=True` the kNN search and plane PCA run ONCE at
-    the starting pose (kernel entry `plane_assoc`); iterations recompute
-    only the pose-dependent distances/Jacobians.  Otherwise each iteration
-    runs `build_residuals` (kernel entry `plane_rows`).
+    the starting pose (kernel entry `knn_plane_assoc`; on the CPU over the
+    valid prefix in `query_chunk`-row slices); iterations recompute only
+    the pose-dependent distances/Jacobians.  Otherwise each iteration runs
+    `build_residuals` (kernel entry `knn_plane_rows`).
 
     `seed_q`/`seed_p` override the STARTING iterate pose while `state`
     stays the prediction prior (the INIT_CONSTANT_VELOCITY predictor,
@@ -198,19 +157,13 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
         location = keypts_raw @ r_il.T + t_il               # IMU frame
         n = location.shape[0]
         world0 = lie.quat_rotate(state.q.expand(n, 4), location) + state.p
-        assoc_kw = dict(voxel_size=size_voxel_map,
-                        max_neighbors=max_number_neighbors,
-                        max_probe=max_probe, nb_voxels=nb_voxels_visited,
-                        threshold_capacity=threshold_voxel_capacity)
-        if query_chunk and query_chunk < n:
-            # keypoints are prefix-compacted (frame.voxel_subsample), so the
-            # association only computes the occupied prefix
-            normal0, a2d, closest, n_found = chunked_assoc(
-                voxel_map, world0, int(torch.sum(keypts_valid)),
-                chunk=query_chunk, **assoc_kw)
-        else:
-            neighbors, n_found = _knn_found(voxel_map, world0, **assoc_kw)
-            normal0, a2d, closest = plane_fit.plane_assoc(neighbors, n_found)
+        # keypoints are prefix-compacted (frame.voxel_subsample), so the
+        # association only computes the occupied prefix
+        normal0, a2d, closest, n_found = plane_fit.knn_plane_assoc(
+            voxel_map, world0, keypts_valid, threshold_voxel_capacity,
+            voxel_size=size_voxel_map, max_neighbors=max_number_neighbors,
+            max_probe=max_probe, nb_voxels=nb_voxels_visited,
+            chunk=query_chunk)
 
         def residuals(s: EskfState) -> ResidualBatch:
             world = lie.quat_rotate(s.q.expand(n, 4), location) + s.p

@@ -3,28 +3,31 @@ the dispatchers the IEKF calls.
 
 The CUDA kernel (`csrc/plane_fit.cu`) replaces the JAX package's one
 Pallas TPU kernel, `sr_livo_tpu/ops/pallas/plane_fit.py::
-plane_residuals_pallas`.  It has two entries:
+plane_residuals_pallas`.  Its two fused entries take the voxel map and
+the keypoints and do the whole association in one launch (voxel-hash
+probe, candidate distances, top-M selection, neighbourhood PCA, tail):
 
-  * `plane_rows`  — the full per-keypoint row (neighbourhood PCA, normal
-    orientation, planarity weight, point-to-plane distance, Jacobian row
-    and mask): what `plane_residuals_pallas` computes, used by the
+  * `knn_plane_rows`  — the full per-keypoint row (normal orientation,
+    planarity weight, point-to-plane distance, Jacobian row, mask): what
+    the kNN gather plus `plane_residuals_pallas` compute, used by the
     `cache_association=False` IEKF once per iteration;
-  * `plane_assoc` — the association half (unflipped normal, planarity
-    a2d, closest neighbour) that the default cached-association IEKF
-    computes once per update and reuses across iterations.
+  * `knn_plane_assoc` — the association (unflipped normal, planarity a2d,
+    closest neighbour, neighbour count) that the default cached-
+    association IEKF computes once per update and reuses across
+    iterations.  It counts the valid keypoint prefix on the device and
+    zeroes the rows beyond it, so the call reads nothing back to the host.
+
+Two earlier entries take finished neighbour rows (`plane_rows`,
+`plane_assoc`); they are off the main path and stay as kernels of their
+own.
 
 Each dispatcher takes the plain PyTorch version for CPU tensors only; on a
 CUDA tensor it launches the kernel or raises (there is no fallback).
 `launches` counts kernel launches per entry so a run can show that the
 main path went through the kernel.
 
-What bounds the kernel on an H100: `plane_rows` at the main path's
-Q = 1024 keypoints and M = 20 neighbours moves ~0.3 MB (~0.1 us at
-3.35 TB/s), `plane_assoc` on 512-row slices about half that, and each
-does a few hundred float operations per keypoint, so launch latency
-bounds it.
-The design does nothing about that yet (one warp per keypoint); CUDA
-graphs and fusing with the kNN gather are later work.
+What bounds the fused entries on an H100, and what the design does about
+it, is in the kernel source's head note.
 """
 
 from __future__ import annotations
@@ -37,9 +40,11 @@ import torch
 
 from sr_livo_tpu_torch import kernels
 from sr_livo_tpu_torch.ops import neighborhood as nb_ops
+from sr_livo_tpu_torch.ops import voxel_map as vm
 
 # Kernel launches per entry since the last reset_launches().
-launches = {"plane_rows": 0, "plane_assoc": 0}
+launches = {"plane_rows": 0, "plane_assoc": 0, "knn_plane_assoc": 0,
+            "knn_plane_rows": 0}
 
 
 def reset_launches():
@@ -82,7 +87,7 @@ def plane_rows_from_assoc(normal0, a2d, closest, n_found, world, location,
 def plane_assoc_plain(neighbors: torch.Tensor, n_found: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(normal (Q, 3), a2d (Q,), closest (Q, 3)) of distance-sorted kNN
-    rows: the association of `models/lio.py::chunked_assoc`."""
+    rows: the association half of `models/lio.py::chunked_assoc`."""
     normal, a2d, _ = nb_ops.neighborhood_distribution(neighbors, n_found)
     return normal, a2d, neighbors[:, 0, :]
 
@@ -97,6 +102,65 @@ def plane_rows_plain(neighbors, n_found, world, location, r_world,
         normal, a2d, closest, n_found, world, location, r_world, last_trans,
         valid, lam_w=lam_w, lam_nb=lam_nb, power_planarity=power_planarity,
         max_dist=max_dist, min_neighbors=min_neighbors)
+
+
+def _knn_found(vmap, world, threshold_capacity, *, voxel_size, max_neighbors,
+              max_probe, nb_voxels):
+    """(neighbors (Q, M, 3), n_found (Q,) int32): the plain kNN."""
+    neighbors, nb_ok, _ = vm.knn(
+        vmap, world, voxel_size=voxel_size, max_neighbors=max_neighbors,
+        max_probe=max_probe, nb_voxels=nb_voxels,
+        threshold_capacity=threshold_capacity)
+    return neighbors, torch.sum(nb_ok, dim=1, dtype=torch.int32)
+
+
+def knn_plane_assoc_plain(vmap, world, keypts_valid, threshold_capacity, *,
+                          voxel_size, max_neighbors, max_probe, nb_voxels,
+                          chunk=0):
+    """Plain kNN + association (port of `models/lio.py::chunked_assoc`):
+    (normal (Q, 3), a2d (Q,), closest (Q, 3), n_found (Q,) int32).
+
+    With 0 < `chunk` < Q only the valid PREFIX of `world` is associated
+    (keypoints are prefix-compacted, frame.voxel_subsample), in `chunk`-row
+    slices; a ragged last slice starts early and recomputes a few rows
+    with identical results, and rows beyond the processed prefix are zero
+    (n_found 0 gates them downstream).  Otherwise every row is."""
+    kw = dict(voxel_size=voxel_size, max_neighbors=max_neighbors,
+              max_probe=max_probe, nb_voxels=nb_voxels)
+    q = world.shape[0]
+    if not chunk or chunk >= q:
+        neighbors, n_found = _knn_found(vmap, world, threshold_capacity, **kw)
+        return (*plane_assoc_plain(neighbors, n_found), n_found)
+    n_valid = int(torch.sum(keypts_valid))
+    f = dict(dtype=world.dtype, device=world.device)
+    nrm = torch.zeros((q, 3), **f)
+    a2 = torch.zeros((q,), **f)
+    cl = torch.zeros((q, 3), **f)
+    nf = torch.zeros((q,), dtype=torch.int32, device=world.device)
+    for i in range((n_valid + chunk - 1) // chunk):
+        off = min(i * chunk, q - chunk)
+        s = slice(off, off + chunk)
+        neighbors, nfc = _knn_found(vmap, world[s], threshold_capacity, **kw)
+        nrm[s], a2[s], cl[s] = plane_assoc_plain(neighbors, nfc)
+        nf[s] = nfc
+    return nrm, a2, cl, nf
+
+
+def knn_plane_rows_plain(vmap, world, location, r_world, last_trans,
+                         keypts_valid, threshold_capacity, *, voxel_size,
+                         max_neighbors, max_probe, nb_voxels, lam_w, lam_nb,
+                         power_planarity, max_dist, min_neighbors):
+    """Plain kNN + full plane row (`models/lio.py::build_residuals` before
+    its residual cap): (h_x (Q, 6), h (Q,), good (Q,))."""
+    neighbors, n_found = _knn_found(
+        vmap, world, threshold_capacity, voxel_size=voxel_size,
+        max_neighbors=max_neighbors, max_probe=max_probe,
+        nb_voxels=nb_voxels)
+    return plane_rows_plain(
+        neighbors, n_found, world, location, r_world, last_trans,
+        keypts_valid, lam_w=lam_w, lam_nb=lam_nb,
+        power_planarity=power_planarity, max_dist=max_dist,
+        min_neighbors=min_neighbors)
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +182,17 @@ def _lib() -> ctypes.CDLL:
     lib.plane_assoc_launch.restype = ctypes.c_int
     lib.plane_assoc_launch.argtypes = [
         _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
+    # map (keys, sig, counts, points, capacity, K), search (world, valid,
+    # threshold, Q, voxel_size, nb_voxels, max_probe, M)
+    fused = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+             _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int]
+    lib.knn_plane_assoc_launch.restype = ctypes.c_int
+    lib.knn_plane_assoc_launch.argtypes = fused + [_P, _P, _P, _P, _P]
+    lib.knn_plane_rows_launch.restype = ctypes.c_int
+    lib.knn_plane_rows_launch.argtypes = fused + [
+        _P, _P, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P]
     return lib
 
 
@@ -202,6 +277,114 @@ def plane_assoc_cuda(neighbors, n_found):
     return normal, a2d, closest
 
 
+def _check_search(vmap, world, keypts_valid, threshold_capacity,
+                  max_neighbors, nb_voxels):
+    """Checks of the fused entries' common inputs (the C entry points
+    refuse a neighbourhood whose shared-memory slab does not fit); returns
+    Q, the device and the map arguments of the C entry points."""
+    dev = world.device
+    if dev.type != "cuda":
+        raise ValueError(f"world: on {dev}; the kernel takes CUDA tensors")
+    if world.dim() != 2 or world.shape[1] != 3:
+        raise ValueError(f"world: shape {tuple(world.shape)}, expected "
+                         "(Q, 3)")
+    q = world.shape[0]
+    c = vmap.counts.shape[0]
+    k = vmap.block_capacity
+    _check("world", world, torch.float32, (q, 3), dev)
+    _check("keypts_valid", keypts_valid, torch.bool, (q,), dev)
+    _check("threshold_capacity", threshold_capacity, torch.int32, (), dev)
+    _check("keys", vmap.keys, torch.int32, (c, 3), dev)
+    _check("sig", vmap.sig, torch.int32, (c,), dev)
+    _check("counts", vmap.counts, torch.int32, (c,), dev)
+    _check("points", vmap.points, torch.float32, (c * k, 3), dev)
+    if c & (c - 1):
+        raise ValueError(f"map capacity {c} is not a power of two")
+    if (k * 12) % 16 or vmap.points.data_ptr() % 16:
+        raise ValueError("the kernel copies whole voxel blocks in 16-byte "
+                         f"units: needs K * 12 % 16 == 0 (K = {k}) and a "
+                         "16-byte aligned `points`")
+    if not 1 <= max_neighbors <= 32:
+        raise ValueError(f"max_neighbors {max_neighbors}: the kernel keeps "
+                         "one neighbour per lane, 1..32")
+    if nb_voxels < 0:
+        raise ValueError(f"nb_voxels {nb_voxels} < 0")
+    return q, dev, [vmap.keys.data_ptr(), vmap.sig.data_ptr(),
+                    vmap.counts.data_ptr(), vmap.points.data_ptr(), c, k]
+
+
+def _search_args(world, keypts_valid, threshold_capacity, q, voxel_size,
+                 nb_voxels, max_probe, max_neighbors):
+    return [world.data_ptr(), keypts_valid.data_ptr(),
+            threshold_capacity.data_ptr(), q, float(voxel_size),
+            int(nb_voxels), int(max_probe), int(max_neighbors)]
+
+
+def knn_plane_assoc_cuda(vmap, world, keypts_valid, threshold_capacity, *,
+                         voxel_size, max_neighbors, max_probe, nb_voxels,
+                         chunk=0):
+    """Fused kNN + association entry (CUDA tensors only), one launch over
+    all rows; `chunk` is the plain version's and is not used.  Reads
+    nothing back to the host."""
+    del chunk
+    q, dev, map_args = _check_search(vmap, world, keypts_valid,
+                                     threshold_capacity, max_neighbors,
+                                     nb_voxels)
+    f = dict(dtype=torch.float32, device=dev)
+    normal = torch.empty((q, 3), **f)
+    a2d = torch.empty((q,), **f)
+    closest = torch.empty((q, 3), **f)
+    n_found = torch.empty((q,), dtype=torch.int32, device=dev)
+    if q == 0:
+        return normal, a2d, closest, n_found
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.knn_plane_assoc_launch(
+            *map_args, *_search_args(world, keypts_valid, threshold_capacity,
+                                     q, voxel_size, nb_voxels, max_probe,
+                                     max_neighbors),
+            normal.data_ptr(), a2d.data_ptr(), closest.data_ptr(),
+            n_found.data_ptr(), stream)
+    _raise_on("knn_plane_assoc", err)
+    launches["knn_plane_assoc"] += 1
+    return normal, a2d, closest, n_found
+
+
+def knn_plane_rows_cuda(vmap, world, location, r_world, last_trans,
+                        keypts_valid, threshold_capacity, *, voxel_size,
+                        max_neighbors, max_probe, nb_voxels, lam_w, lam_nb,
+                        power_planarity, max_dist, min_neighbors):
+    """Fused kNN + full-row entry (CUDA tensors only); invalid keypoints
+    skip the search and come out as zero rows, not good."""
+    q, dev, map_args = _check_search(vmap, world, keypts_valid,
+                                     threshold_capacity, max_neighbors,
+                                     nb_voxels)
+    _check("location", location, torch.float32, (q, 3), dev)
+    _check("r_world", r_world, torch.float32, (3, 3), dev)
+    _check("last_trans", last_trans, torch.float32, (3,), dev)
+    h_x = torch.empty((q, 6), dtype=torch.float32, device=dev)
+    h = torch.empty((q,), dtype=torch.float32, device=dev)
+    good = torch.empty((q,), dtype=torch.bool, device=dev)
+    if q == 0:
+        return h_x, h, good
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.knn_plane_rows_launch(
+            *map_args, *_search_args(world, keypts_valid, threshold_capacity,
+                                     q, voxel_size, nb_voxels, max_probe,
+                                     max_neighbors),
+            location.data_ptr(), r_world.data_ptr(), last_trans.data_ptr(),
+            float(lam_w), float(lam_nb), float(power_planarity),
+            float(max_dist), int(min_neighbors),
+            float(max_dist * min_neighbors), h_x.data_ptr(), h.data_ptr(),
+            good.data_ptr(), stream)
+    _raise_on("knn_plane_rows", err)
+    launches["knn_plane_rows"] += 1
+    return h_x, h, good
+
+
 # ---------------------------------------------------------------------------
 # Dispatchers: plain version for CPU tensors, the kernel for CUDA tensors
 # ---------------------------------------------------------------------------
@@ -223,3 +406,30 @@ def plane_assoc(neighbors, n_found):
     if neighbors.device.type == "cuda":
         return plane_assoc_cuda(neighbors, n_found)
     raise ValueError(f"plane_assoc: unsupported device {neighbors.device}")
+
+
+def knn_plane_assoc(vmap, world, keypts_valid, threshold_capacity, **kw):
+    """(normal, a2d, closest, n_found) of every keypoint; see
+    `knn_plane_assoc_plain` for the keywords."""
+    if world.device.type == "cpu":
+        return knn_plane_assoc_plain(vmap, world, keypts_valid,
+                                     threshold_capacity, **kw)
+    if world.device.type == "cuda":
+        return knn_plane_assoc_cuda(vmap, world, keypts_valid,
+                                    threshold_capacity, **kw)
+    raise ValueError(f"knn_plane_assoc: unsupported device {world.device}")
+
+
+def knn_plane_rows(vmap, world, location, r_world, last_trans, keypts_valid,
+                   threshold_capacity, **kw):
+    """(h_x, h, good) of every keypoint; see `knn_plane_rows_plain` for
+    the keywords."""
+    if world.device.type == "cpu":
+        return knn_plane_rows_plain(vmap, world, location, r_world,
+                                    last_trans, keypts_valid,
+                                    threshold_capacity, **kw)
+    if world.device.type == "cuda":
+        return knn_plane_rows_cuda(vmap, world, location, r_world,
+                                   last_trans, keypts_valid,
+                                   threshold_capacity, **kw)
+    raise ValueError(f"knn_plane_rows: unsupported device {world.device}")

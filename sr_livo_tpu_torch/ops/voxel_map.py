@@ -89,8 +89,14 @@ def make_map(capacity: int, voxel_points: int, dtype=torch.float32,
 
 
 def voxel_coords(pts: torch.Tensor, voxel_size: float) -> torch.Tensor:
-    """World points -> int32 voxel coords, truncation toward zero."""
-    return torch.trunc(pts / voxel_size).to(torch.int32)
+    """World points -> int32 voxel coords, truncation toward zero.
+
+    The divisor is a 0-d tensor on the points' device: on CUDA, PyTorch
+    divides by a Python scalar as a multiply by its reciprocal, which
+    can move a point across a voxel face; tensor division rounds like
+    the JAX package (and the CUDA kernel's `__fdiv_rn`)."""
+    div = torch.full((), voxel_size, dtype=pts.dtype, device=pts.device)
+    return torch.trunc(pts / div).to(torch.int32)
 
 
 def voxel_hash(coords: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -312,8 +318,12 @@ def knn(vmap: VoxelMap, queries: torch.Tensor, *, voxel_size: float,
     points are kept.
 
     Returns (neighbors (Q, M, 3), neighbor_valid (Q, M) bool, dists (Q, M))
-    sorted ascending by distance.  Ties may be ordered differently from the
-    JAX package's top-k; the neighbour sets and distances are the same.
+    sorted ascending by (distance, flat candidate index v*K + j), the order
+    of the JAX package's `lax.top_k`: ties go to the lower index, and rows
+    with fewer than M candidates are padded with the lowest-index empty
+    entries.  This is also the oracle of the fused kNN + plane kernel
+    entries (ops/plane_fit.py), so d2 is summed as (dx*dx + dy*dy) + dz*dz,
+    the kernel's order.
     """
     K = vmap.block_capacity
     q_coords = voxel_coords(queries, voxel_size)                  # (Q, 3)
@@ -333,11 +343,15 @@ def knn(vmap: VoxelMap, queries: torch.Tensor, *, voxel_size: float,
     Q, V = slots.shape
     cand = cand.reshape(Q, V * K, 3)
     cand_ok = cand_ok.reshape(Q, V * K)
-    d2 = torch.sum((cand - queries[:, None, :]) ** 2, dim=-1)
+    d = cand - queries[:, None, :]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    d2 = (dx * dx + dy * dy) + dz * dz
     d2 = torch.where(cand_ok, d2, torch.full_like(d2, float("inf")))
 
-    top_d2, idx = torch.topk(d2, max_neighbors, dim=1, largest=False,
-                             sorted=True)
+    # A stable sort keeps equal distances in index order (torch.topk
+    # guarantees no order among ties).
+    top_d2, idx = torch.sort(d2, dim=1, stable=True)
+    top_d2, idx = top_d2[:, :max_neighbors], idx[:, :max_neighbors]
     nb_pts = torch.gather(cand, 1, idx[..., None].expand(Q, max_neighbors, 3))
     nb_ok = torch.gather(cand_ok, 1, idx)
     dists = torch.sqrt(torch.clamp(

@@ -2,8 +2,8 @@
 with the JAX package's: the same insert sequence leaves `keys`, `sig`,
 `counts`, `point_ids` and `points` identical bit for bit, the hashes are
 bit-exact on coordinates that overflow int32, and kNN returns the same
-neighbour sets, counts and distances (ties may be ordered differently,
-so distances are compared as sorted rows to float32 round-off)."""
+neighbour sets, counts and distances, and on exact ties the same
+neighbours in the same order as `lax.top_k` (lower index first)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,6 +127,46 @@ def test_knn_matches_jax(maps, nb_voxels, threshold):
             diff = np.array(sorted(a ^ b), np.float32)
             dd = np.linalg.norm(diff - q[i], axis=1)
             np.testing.assert_allclose(dd, kth, atol=1e-6)
+
+
+def test_knn_tie_order_matches_jax():
+    """Points on a quarter lattice, queries on lattice and voxel-centre
+    points: every squared distance is exact in float32, so many
+    candidates tie at the nearest and at the M-th distance.  The port's
+    kNN must return the JAX package's neighbours in the same order
+    (`lax.top_k` puts the lower flat index v*K + j first among equal
+    distances), with the same counts."""
+    rng = np.random.RandomState(11)
+    g = np.arange(-8, 12) * 0.25                       # [-2, 2.75]
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = lattice[rng.permutation(len(lattice))].astype(np.float32)
+    kw = dict(voxel_size=1.0, min_distance=0.0, max_probe=8)
+    jm = jvm.make_map(1 << 12, 20)
+    tm = tvm.make_map(1 << 12, 20)
+    ones = np.ones(len(pts), bool)
+    jm, _ = jvm.insert(jm, jnp.asarray(pts), jnp.asarray(ones), **kw)
+    tm, _ = tvm.insert(tm, torch.as_tensor(pts), torch.as_tensor(ones), **kw)
+    _assert_maps_equal(tm, jm)
+    q = np.concatenate([lattice[rng.choice(len(lattice), 60)],
+                        [[0.5, 0.5, 0.5], [0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                         [-0.5, 0.5, 1.5], [0.125, 0.125, 0.125],
+                         [9.0, 9.0, 9.0]]]).astype(np.float32)
+    for nb_voxels, m in ((1, 20), (2, 20), (1, 7)):
+        knn_kw = dict(voxel_size=1.0, max_probe=8, nb_voxels=nb_voxels,
+                      threshold_capacity=1)
+        jn, jok, jd = (np.asarray(a) for a in jvm.knn(
+            jm, jnp.asarray(q), max_neighbors=m, **knn_kw))
+        tn, tok, td = (a.numpy() for a in tvm.knn(
+            tm, torch.as_tensor(q), max_neighbors=m, **knn_kw))
+        np.testing.assert_array_equal(tok.sum(1), jok.sum(1))
+        np.testing.assert_array_equal(tok, jok)
+        np.testing.assert_array_equal(tn, jn)
+        np.testing.assert_array_equal(td, jd)
+        # the ties are there: at the nearest distance and across the M-th
+        wide = np.asarray(jvm.knn(jm, jnp.asarray(q), max_neighbors=m + 8,
+                                  **knn_kw)[2])
+        assert (jd[:, 0] == jd[:, 1]).sum() > 15
+        assert (wide[:, m - 1] == wide[:, m]).sum() > 15
 
 
 def test_convert_roundtrip(maps):

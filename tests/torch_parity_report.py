@@ -15,6 +15,7 @@ import torch
 
 from tests import test_torch_eskf as E
 from tests import test_torch_frame as F
+from tests import test_torch_knn_plane as K
 from tests import test_torch_lie as L
 from tests import test_torch_lio as I
 from tests import test_torch_measurements as M
@@ -171,6 +172,63 @@ def voxel_map_rows():
         [(tok.sum(1), jok.sum(1)),
          (np.sort(np.where(tok, td, 1e9), 1), np.sort(np.where(jok, jd, 1e9),
                                                        1))])
+    row("voxel_map.knn (neighbour points in order, masks)",
+        [(tn, jn), (tok, jok)])
+
+
+def knn_plane_rows():
+    import functools
+    from sr_livo_tpu.models import lio as jlio
+    import sr_livo_tpu.ops.pallas.plane_fit as jpf
+    from sr_livo_tpu_torch.ops import plane_fit
+    from sr_livo_tpu_torch.utils import lie as tlie
+    jm, tm, world = K.scene.__wrapped__()
+    n_valid = 700
+    kw = dict(K.SEARCH, nb_voxels=1)
+    jn, ja, jc, jf = (np.asarray(a)[:n_valid] for a in jlio.chunked_assoc(
+        jm, jnp.asarray(world), jnp.int32(n_valid),
+        threshold_capacity=jnp.int32(1), chunk=512, **kw))
+    tn, ta, tc, tf = (a.numpy()[:n_valid] for a in plane_fit.knn_plane_assoc(
+        tm, torch.as_tensor(world), torch.arange(K.Q) < n_valid,
+        torch.tensor(1, dtype=torch.int32), chunk=512, **kw))
+    plane = tf >= 3
+    sign = np.where((tn * jn).sum(-1, keepdims=True) < 0, -1.0, 1.0)
+    row("plane_fit.knn_plane_assoc vs chunked_assoc, 700 of 1024 rows "
+        "(n_found, closest, a2d; normal on rows with >= 3 neighbours)",
+        [(tf, jf), (tc, jc), (ta, ja), ((tn * sign)[plane], jn[plane])])
+    keypts, valid = world[:600], np.arange(600) < 520
+    q = tlie.exp_so3_quat(torch.tensor([0.01, -0.02, 0.015]))
+    t = torch.tensor([0.05, -0.03, 0.02])
+    last = np.array([0.3, -0.2, 1.0], np.float32)
+    loc = torch.as_tensor(keypts)
+    thx, th, tgood = (a.numpy() for a in plane_fit.knn_plane_rows(
+        tm, tlie.quat_rotate(q.expand(600, 4), loc) + t, loc,
+        tlie.quat_to_rot(q), torch.as_tensor(last), torch.as_tensor(valid),
+        torch.tensor(1, dtype=torch.int32), voxel_size=1.0, max_neighbors=20,
+        max_probe=8, nb_voxels=1, lam_w=0.9, lam_nb=0.1,
+        power_planarity=2.0, max_dist=0.3, min_neighbors=12))
+    eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    for use_pallas in (False, True):
+        patch = _Patch()
+        if use_pallas:
+            patch.setattr(jpf, "plane_residuals_pallas", functools.partial(
+                jpf.plane_residuals_pallas, interpret=True))
+        j = jlio.build_residuals(
+            jm, jnp.asarray(keypts), jnp.asarray(valid),
+            jnp.asarray(q.numpy()), jnp.asarray(t.numpy()), jnp.asarray(last),
+            jnp.asarray(eye), jnp.asarray(zero),
+            threshold_voxel_capacity=jnp.int32(1), use_pallas=use_pallas,
+            size_voxel_map=1.0, nb_voxels_visited=1, max_number_neighbors=20,
+            min_number_neighbors=12, power_planarity=2.0,
+            max_dist_to_plane=0.3, weight_alpha=0.9, weight_neighborhood=0.1,
+            max_num_residuals=0, max_probe=8)
+        patch.restore()
+        jhx, jh, jgood = (np.asarray(a) for a in (j.h_x, j.h, j.valid))
+        both = tgood & jgood
+        ref = "plane_residuals_pallas (interpret)" if use_pallas else "jnp"
+        row(f"plane_fit.knn_plane_rows vs build_residuals [{ref}], uncapped "
+            f"(rows good in both; good agree {(tgood == jgood).mean():.4f})",
+            [(thx[both], jhx[both]), (th[both], jh[both])])
 
 
 def plane_rows():
@@ -297,7 +355,8 @@ def pipeline_rows():
 
 def main():
     for fn in (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
-               plane_rows, lio_rows, odometry_rows, pipeline_rows):
+               plane_rows, knn_plane_rows, lio_rows, odometry_rows,
+               pipeline_rows):
         fn()
     print("| function | max abs error | bit-exact |")
     print("| --- | --- | --- |")
