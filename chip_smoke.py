@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only profile   # device + profile phases only
+    python3 chip_smoke.py --only livo      # device + livo phases only
 
 Phases, each printing one JSON line:
 
@@ -29,7 +30,17 @@ Phases, each printing one JSON line:
      state);
   6. profile — torch.profiler over 20 sweeps of the default mode after a
      warm-up: the 10 device ops that took most time and the device's
-     busy share of the window.
+     busy share of the window;
+  7. livo    — the full LIVO loop (LivoPipeline with a VisionModule) at
+     bench.py's configuration (512 x 640 images rendered on the card, 300
+     tracks, the default colored-map shapes) on a 20 s run: warm-up as in
+     bench.py, then the timed rest with synchronizing stage timers
+     (sweeps+images/s, stage times, peak device memory), then a
+     torch.profiler window of 20 frames.  It checks the bars of
+     tests/test_vision_pipeline.py (ATE, kept tracks and inliers, the
+     camera intrinsics, time offset and extrinsic, the colored map),
+     `knn_plane_assoc` launched once per sweep and no plain kNN call on
+     the card.
 
 Each entry's times: device ms per launch from CUDA-graph replay (`ms`),
 one eager call of the kernel (`call_ms`) and of the plain version
@@ -44,6 +55,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import math
 import os
@@ -58,6 +70,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from sr_livo_tpu_torch import kernels  # noqa: E402
 from sr_livo_tpu_torch.config import LivoConfig  # noqa: E402
+from sr_livo_tpu_torch.models.vision import VisionModule  # noqa: E402
 from sr_livo_tpu_torch.ops import plane_fit  # noqa: E402
 from sr_livo_tpu_torch.ops import voxel_map as vm  # noqa: E402
 from sr_livo_tpu_torch.pipeline import LivoPipeline  # noqa: E402
@@ -558,27 +571,32 @@ def fused_phase(captures: dict, min_neighbors: int) -> dict:
 # Phase 6: device profile of the step
 # ---------------------------------------------------------------------------
 
-def profile_phase(sim, n_warm: int = 60, n_sweeps: int = 20) -> dict:
-    """torch.profiler over `n_sweeps` measurements of the default mode
-    after `n_warm` warm-up ones: the 10 device ops with the most device
-    time, and the union of the device's activity over the window's host
-    wall time (its busy share)."""
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def device_profile(run, ranges: str = "") -> dict:
+    """torch.profiler around `run()` (which ends in a synchronize): the
+    window's host wall time, the device events in it, the union of their
+    time (the device's busy time and share of the window), and the 10
+    device ops with the most device time.  With `ranges`, also each
+    profiler range (`record_function`) whose name starts with it: calls,
+    host ms, device ms of the kernels it launched, and its kernel
+    launches, summed over the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = LivoPipeline(bench_lio_cfg(cache_association=True), device="cuda")
-    meas = cut_all(pipe, sim)
-    pipe.process_measurements(meas[:n_warm])
-    torch.cuda.synchronize()
-    n0 = pipe.index_frame
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.process_measurements(meas[n_warm:n_warm + n_sweeps])
-        torch.cuda.synchronize()
+        run()
         window_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    # the ranges also appear on the device timeline as annotations that
+    # span idle gaps; they are not device work
     dev = sorted(((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  for e in events if e.device_type == DeviceType.CUDA
+                  and not (ranges and e.name.startswith(ranges))),
                  key=lambda x: x[0])
     busy, end = 0.0, -math.inf
     by_name = {}
@@ -589,19 +607,217 @@ def profile_phase(sim, n_warm: int = 60, n_sweeps: int = 20) -> dict:
         tot[0] += b - a
         tot[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    out = {"phase": "profile", "cache_association": True,
-           "sweeps": pipe.index_frame - n0, "window_ms": window_us / 1e3,
-           "device_events": len(dev), "device_busy_ms": busy / 1e3,
+    out = {"window_ms": window_us / 1e3, "device_events": len(dev),
+           "device_busy_ms": busy / 1e3,
            "device_busy_share": busy / window_us if dev else None,
-           "top_device_ops": [{"name": name[:160], "ms": t / 1e3, "calls": n}
-                              for name, (t, n) in top]}
+           "top_device_ops": [{"name": name[:160], "ms": t / 1e3,
+                               "calls": n} for name, (t, n) in top]}
+    if ranges:
+        cpu = [e for e in events if e.device_type == DeviceType.CPU]
+        launches = sorted(e.time_range.start for e in cpu
+                          if e.name in KERNEL_LAUNCHES)
+        agg = {}
+        for e in cpu:
+            if not e.name.startswith(ranges):
+                continue
+            r = agg.setdefault(e.name, {"calls": 0, "host_ms": 0.0,
+                                        "device_ms": 0.0, "launches": 0})
+            r["calls"] += 1
+            r["host_ms"] += e.time_range.elapsed_us() / 1e3
+            r["device_ms"] += e.device_time_total / 1e3
+            r["launches"] += (bisect.bisect_right(launches, e.time_range.end)
+                              - bisect.bisect_left(launches,
+                                                   e.time_range.start))
+        out["ranges"] = agg
+    return out
+
+
+def profile_phase(sim, n_warm: int = 60, n_sweeps: int = 20) -> dict:
+    """torch.profiler over `n_sweeps` measurements of the default mode
+    after `n_warm` warm-up ones."""
+    pipe = LivoPipeline(bench_lio_cfg(cache_association=True), device="cuda")
+    meas = cut_all(pipe, sim)
+    pipe.process_measurements(meas[:n_warm])
+    torch.cuda.synchronize()
+    n0 = pipe.index_frame
+
+    def run():
+        pipe.process_measurements(meas[n_warm:n_warm + n_sweeps])
+        torch.cuda.synchronize()
+
+    out = {"phase": "profile", "cache_association": True,
+           **device_profile(run), "sweeps": pipe.index_frame - n0}
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the full LIVO loop
+# ---------------------------------------------------------------------------
+
+CAM = (420.0, 420.0, 320.0, 256.0)
+IMAGE_SIZE = (512, 640)     # rows, cols
+R_IMU_CAMERA = [0, 0, 1, -1, 0, 0, 0, -1, 0]
+
+
+def bench_livo_cfg() -> LivoConfig:
+    """bench.py's full LIVO configuration (bench.py:32-57): the LIO shapes
+    of the slice phase, 512 x 640 images, camera (420, 420, 320, 256)
+    without distortion, the forward camera mount, and the default color
+    map (2^19 x 20 voxel points, a 2^20 registry, 8192 render points,
+    2048 render voxels), 300 tracks, a 4-level pyramid, a 21 px window."""
+    cfg = bench_lio_cfg(cache_association=True)
+    co = cfg.camera_options
+    co.image_width, co.image_height = IMAGE_SIZE[1], IMAGE_SIZE[0]
+    co.image_scale = 1.0
+    co.camera_intrinsic = [CAM[0], 0, CAM[2], 0, CAM[1], CAM[3], 0, 0, 1]
+    co.camera_dist_coeffs = [0, 0, 0, 0, 0]
+    cfg.extrinsics.extrinsic_R_imu_camera = list(R_IMU_CAMERA)
+    cfg.extrinsics.extrinsic_t_imu_camera = [0.0, 0.0, 0.0]
+    return cfg
+
+
+def livo_sim():
+    """The 20 s run with images rendered on the card, handed over as uint8
+    like a camera feed (bench.py:80-82).  Returns (sim, ms to render one
+    image and copy it to the host)."""
+    sim = synthetic.simulate(duration=20.0, n_azimuth=256, n_rings=32,
+                             imu_rate=200.0, seed=3, image_size=IMAGE_SIZE,
+                             camera=CAM, device="cuda")
+    sim.images = [(t, np.clip(np.round(im * 255.0), 0, 255).astype(np.uint8))
+                  for (t, im) in sim.images]
+    world, traj = synthetic.SyntheticWorld(), synthetic.Trajectory()
+    dirs = synthetic._camera_ray_table(CAM, IMAGE_SIZE)
+    t0 = time.perf_counter()
+    for k in range(10):
+        synthetic.render_image(world, traj, 5.0 + 0.1 * k, CAM, IMAGE_SIZE,
+                               _dirs_cam=dirs, device="cuda")
+    return sim, (time.perf_counter() - t0) * 100.0
+
+
+def livo_checks(pipe, vision, sim) -> dict:
+    """The bars of tests/test_vision_pipeline.py:59-108 on a run."""
+    ts, ps, _ = pipe.trajectory()
+    stats = np.array([s[1:] for s in vision.stats], np.float64)
+    cam = vision.camera
+    intr = cam.intr.double().cpu().numpy()
+    r_ic = lie.quat_to_rot(cam.q_ic).double().cpu().numpy()
+    r_cfg = np.asarray(R_IMU_CAMERA, np.float64).reshape(3, 3)
+    ang = math.degrees(math.acos(float(np.clip(
+        (np.trace(r_ic @ r_cfg.T) - 1) / 2, -1, 1))))
+    cmap = vision.color_map
+    colored = (cmap.reg_valid & (cmap.n_rgb >= 3)).cpu().numpy()
+    err = np.abs(cmap.rgb.cpu().numpy()[colored] / 255.0
+                 - synthetic.SyntheticWorld().color(
+                     cmap.pos.cpu().double().numpy()[colored]))
+    err_c = np.abs(err - np.median(err, axis=0, keepdims=True))
+    return {"ate_m": tum.ate_rmse(ts, ps, sim.gt_times, sim.gt_pos,
+                                  align=True),
+            "rendered_frames": len(stats),
+            "mean_kept_tracks": float(stats[5:, 0].mean()),
+            "mean_inliers": float(stats[5:, 1].mean()),
+            "intrinsics": intr.tolist(), "td_s": float(cam.td),
+            "extrinsic_rotation_deg": ang,
+            "colored_points": int(colored.sum()),
+            "median_color_err": float(np.median(err_c))}
+
+
+def livo_phase(sim, render_ms: float, cfg: LivoConfig,
+               n_profile: int = 20) -> dict:
+    """The full LIVO loop on `sim`.  Warm-up as bench.py:133-148
+    (init_num_frames + 2 frames after filter init and at least 3 rendered
+    frames), then the timed rest but the last `n_profile` frames with
+    synchronizing stage timers, then those frames under torch.profiler.
+    The launch counters are set to 0 just before the run and read just
+    after it."""
+    plane_fit.reset_launches()
+    with CudaKnnCalls() as knn_calls:
+        vision = VisionModule(cfg, device="cuda")
+        pipe = LivoPipeline(cfg, vision=vision, device="cuda")
+        meas = cut_all(pipe, sim)
+        n_steady = cfg.odometry_options.init_num_frames + 2
+        n_warm = frames = rendered = 0
+        for m in meas:
+            pipe._process_measurement(m)
+            n_warm += 1
+            if pipe.initialized:
+                frames += 1
+                rendered += int(m.rendering and m.image is not None)
+                if frames >= n_steady and rendered >= 3:
+                    break
+        timed = meas[n_warm:len(meas) - n_profile]
+        if not timed or rendered < 3:
+            raise AssertionError("the warm-up consumed the run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pipe.timers = StageTimers(sync=True, device=pipe.device)
+        n0 = pipe.index_frame
+        t0 = time.perf_counter()
+        pipe.process_measurements(timed)
+        pipe.timers.synchronize()
+        seconds = time.perf_counter() - t0
+        n_timed = pipe.index_frame - n0
+        peak = torch.cuda.max_memory_allocated()
+        stages = {k: v["mean_ms"] for k, v in pipe.timers.report().items()}
+        # printed even when it did not run: with every sweep cut at an
+        # image, the colored-map insert runs inside `vis_insert` instead
+        stages.setdefault("color_insert", None)
+        rest = meas[len(meas) - n_profile:]
+        n_rendered = sum(1 for m in rest if m.rendering
+                         and m.image is not None)
+        pipe.timers = StageTimers(sync=False, device=pipe.device)
+
+        def run():
+            pipe.process_measurements(rest)
+            torch.cuda.synchronize()
+
+        prof = device_profile(run, ranges="vision.")
+    launches = dict(plane_fit.launches)
+    prof["device_ops_per_rendered_frame"] = (
+        prof["device_events"] / max(n_rendered, 1))
+    checks = livo_checks(pipe, vision, sim)
+    out = {"phase": "livo", "measurements": len(meas),
+           "frames": len(pipe.records), "timed_frames": n_timed,
+           "timed_seconds": seconds,
+           "sweeps_images_per_s": n_timed / seconds,
+           "stages_ms": stages, "peak_memory_bytes": peak,
+           "render_ms_per_image": render_ms, **checks,
+           "launches": launches, "plain_knn_calls_on_cuda": knn_calls.n,
+           "profile": {"frames": len(rest), "rendered_frames": n_rendered,
+                       **prof}}
+    emit(out)
+    bad = []
+    if not checks["ate_m"] < 0.05:
+        bad.append(f"ATE {checks['ate_m']} m")
+    if not (checks["mean_kept_tracks"] > 30 and checks["mean_inliers"] > 20):
+        bad.append("too few tracks or inliers")
+    fx, fy = checks["intrinsics"][:2]
+    if not (abs(fx - CAM[0]) < 10 and abs(fy - CAM[1]) < 10):
+        bad.append(f"intrinsics drifted to {checks['intrinsics']}")
+    if not abs(checks["td_s"]) < 0.05:
+        bad.append(f"td {checks['td_s']} s")
+    if not checks["extrinsic_rotation_deg"] < 5.0:
+        bad.append(f"extrinsic off by {checks['extrinsic_rotation_deg']} deg")
+    if not (checks["colored_points"] > 500
+            and checks["median_color_err"] < 0.15):
+        bad.append(f"{checks['colored_points']} colored points, median "
+                   f"error {checks['median_color_err']}")
+    if launches["knn_plane_assoc"] != len(pipe.records):
+        bad.append(f"knn_plane_assoc launched {launches['knn_plane_assoc']} "
+                   f"times in {len(pipe.records)} frames")
+    others = {k: v for k, v in launches.items()
+              if k != "knn_plane_assoc" and v}
+    if others or knn_calls.n:
+        bad.append(f"the LIVO path launched {others} and called the plain "
+                   f"kNN {knn_calls.n} times on CUDA")
+    if bad:
+        raise AssertionError("livo phase: " + "; ".join(bad))
     return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["profile"],
+    parser.add_argument("--only", choices=["profile", "livo"],
                         help="run only the device and this phase")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
@@ -613,6 +829,10 @@ def main() -> int:
     emit({"phase": "device", "kind": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if only == "livo":
+        livo_phase(*livo_sim(), bench_livo_cfg())
+        print(smi, flush=True)
+        return 0
     sim = synthetic.simulate(duration=20.0, n_azimuth=256, n_rings=32,
                              imu_rate=200.0, seed=3)
     if only == "profile":
@@ -640,6 +860,7 @@ def main() -> int:
     emit({"phase": "fused_vs_plain",
           **{k: results[k] for k in ("knn_plane_assoc", "knn_plane_rows")}})
     profile_phase(sim)
+    livo = livo_phase(*livo_sim(), bench_livo_cfg())
 
     summary = []
     for name, cache in (("knn_plane_assoc", True), ("knn_plane_rows", False),
@@ -649,6 +870,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES, "q": r["q"], "m": r["m"],
             "launches": runs[cache]["launches"][name],
+            "launches_livo": livo["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],

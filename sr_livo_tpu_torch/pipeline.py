@@ -1,10 +1,10 @@
-"""LIVO pipeline orchestrator, LIO-only path (port of
-`sr_livo_tpu/pipeline.py`).
+"""LIVO pipeline orchestrator (port of `sr_livo_tpu/pipeline.py`).
 
-Owns the sweep cutter, the IMU initializer and the LIO engine; the host
-cuts and pads the streams, the engine runs every sweep on one device.
-Vision, the mapping backend, live streaming, map eviction and checkpoints
-are not part of this port yet.
+Owns the sweep cutter, the IMU initializer, the LIO engine and, when a
+vision module is attached, the camera ESIKFs and the colored map; the host
+cuts and pads the streams, every sweep runs on one device.  The mapping
+backend, live streaming, map eviction and checkpoints are not part of
+this port yet.
 
 Reference topology: lioOptimization::run()/process()
 (src/lioOptimization.cpp:1428-1584, 1037-1131).
@@ -26,6 +26,7 @@ from sr_livo_tpu_torch.models import eskf as eskf_mod
 from sr_livo_tpu_torch.models.odometry import LioEngine, SweepInput, WireSweep
 from sr_livo_tpu_torch.runtime import measurements as meas_mod
 from sr_livo_tpu_torch.runtime import tum
+from sr_livo_tpu_torch.runtime.pcd import save_xyz_points
 from sr_livo_tpu_torch.utils.profiling import StageTimers
 
 
@@ -52,16 +53,19 @@ def _records_from_rows(pending, rows) -> List[FrameRecord]:
 
 
 class LivoPipeline:
-    def __init__(self, cfg: LivoConfig, device="cuda"):
+    def __init__(self, cfg: LivoConfig, vision=None, device="cuda"):
+        """`vision`: an attached models.vision.VisionModule on the same
+        device, or None for the LIO-only pipeline."""
         if cfg.enable_map_eviction:
             raise NotImplementedError(
                 "map eviction (compact_map) is not ported yet")
-        if cfg.debug_output:
-            raise NotImplementedError(
-                "debug_output frame dumps (runtime/pcd.py) are not ported yet")
         self.cfg = cfg
         self.engine = LioEngine(cfg, device=device)
         self.device = self.engine.device
+        if vision is not None and vision.device != self.device:
+            raise ValueError(f"vision module on {vision.device}, pipeline on "
+                             f"{self.device}")
+        self.vision = vision
         self.cutter = meas_mod.SweepCutter(
             cfg.sweep_interval,
             time_diff_enable=cfg.imu_options.time_diff_enable)
@@ -184,9 +188,10 @@ class LivoPipeline:
     # ---- two-phase per-frame path -----------------------------------------
     def _host_prepare_measurement(self, meas: meas_mod.Measurement,
                                   frame_index: int, to_device: bool = True):
-        """Numpy sweep preparation (feeder-thread safe: touches only the
-        cutter-side state `current_time`, never the filter or the map).
-        With `to_device`, the padded buffers are uploaded here too."""
+        """Numpy sweep and image preparation (feeder-thread safe: touches
+        only the cutter-side state `current_time`, never the filter or the
+        maps).  With `to_device`, the padded buffers and the image are
+        uploaded here too."""
         if to_device:
             def up(x):
                 return torch.as_tensor(x, device=self.device)
@@ -217,7 +222,13 @@ class LivoPipeline:
                 imu_gyr=up(prep.imu_gyr), imu_valid=up(prep.imu_valid),
                 do_optimize=up(np.asarray(frame_index > 1)),
                 threshold_capacity=up(np.int32(thr)))
-        return (meas, frame_index, sweep)
+        host_img = None
+        if (self.vision is not None and meas.rendering
+                and meas.image is not None):
+            with self.timers.stage("vis_host_prep"):
+                img_u8, remapped = self.vision._host_prepare(meas.image)
+                host_img = (up(img_u8), remapped)
+        return (meas, frame_index, sweep, host_img)
 
     def _adaptive_gyr_rate(self, meas: meas_mod.Measurement) -> float:
         """Host-side trigger of the dense-keypoint variant
@@ -246,7 +257,7 @@ class LivoPipeline:
         return gyr_rate
 
     def _dispatch_prepared(self, prepared):
-        meas, frame_index, sweep = prepared
+        meas, frame_index, sweep, host_img = prepared
         if frame_index != self.index_frame:
             raise RuntimeError(f"frame {frame_index} dispatched out of order "
                                f"(expected {self.index_frame})")
@@ -268,6 +279,31 @@ class LivoPipeline:
         if self.engine.use_cv_init:
             self._pose_hist = (self._pose_hist
                                + [(out.state.q, out.state.p)])[-2:]
+
+        if self.cfg.debug_output:
+            # per-frame de-skewed world-frame cloud dump
+            # (lioOptimization.cpp:1091-1099)
+            d = os.path.join(self.cfg.output_path, "cloud_frame")
+            os.makedirs(d, exist_ok=True)
+            save_xyz_points(out.frame_pts_world.cpu().numpy(),
+                            out.frame_valid.cpu().numpy(),
+                            os.path.join(d, f"{self.index_frame:06d}.pcd"))
+
+        if self.vision is not None:
+            if meas.rendering and meas.image is not None:
+                # rendered frame: the colored-map insert of this sweep runs
+                # inside the vision frame
+                with self.timers.stage("vision_frame"):
+                    self.vision.process_frame(self, meas, out,
+                                              host_img=host_img)
+            else:
+                # colored-map leg of addPointsToMap (every sweep,
+                # lioOptimization.cpp:538-539)
+                with self.timers.stage("color_insert"):
+                    self.vision.insert_sweep_points(
+                        out.frame_pts_world, out.frame_valid,
+                        out.summary.success, meas.time_image)
+                    self.timers.synchronize()
 
         if self.cfg.icp.debug_print:
             # ICP failure diagnostics (optimize.cpp:110-123); reads the

@@ -59,8 +59,9 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    # Negation, not a product with a constant tensor: building that tensor
+    # from a Python list on CUDA is a synchronous host-to-device copy.
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -182,10 +182,33 @@ def test_convert_roundtrips_state(runs):
 
 
 def test_unported_options_raise():
-    for field in ("enable_map_eviction", "debug_output"):
-        cfg = _port_cfg()
-        setattr(cfg, field, True)
-        with pytest.raises(NotImplementedError):
-            TPipe(cfg, device="cpu")
+    cfg = _port_cfg()
+    cfg.enable_map_eviction = True
+    with pytest.raises(NotImplementedError):
+        TPipe(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TPipe(_port_cfg(), device="cpu").save_checkpoint("unused")
+
+
+def test_debug_output_dumps_frame_clouds(sims, tmp_path):
+    """debug_output writes each frame's de-skewed world-frame cloud as a
+    binary PCD (lioOptimization.cpp:1091-1099)."""
+    from sr_livo_tpu_torch.runtime.pcd import load_pcd_xyz
+    _, tsim = sims
+    cfg = _port_cfg()
+    cfg.debug_output = True
+    cfg.output_path = str(tmp_path)
+    pipe = TPipe(cfg, device="cpu")
+    for (t, a, g) in tsim.imu:
+        pipe.push_imu(t, a, g)
+    for c in tsim.lidar_chunks:
+        pipe.push_points(c)
+    for (t, img) in tsim.images:
+        pipe.push_image(t, img)
+    meas = [pipe.cutter.get() for _ in range(45)]
+    pipe.process_measurements(meas, pipelined=False)
+    files = sorted(os.listdir(tmp_path / "cloud_frame"))
+    assert len(files) == pipe.index_frame - 1 > 5
+    pts = load_pcd_xyz(str(tmp_path / "cloud_frame" / files[-1]))
+    assert pts.shape[1] == 3 and pts.shape[0] > 100
+    assert np.all(np.isfinite(pts)) and np.abs(pts).max() < 20.0

@@ -4,7 +4,7 @@ absolute difference and whether the outputs are bit-exact.
 
     JAX_PLATFORMS=cpu python -m tests.torch_parity_report
 
-Runs on the CPU (the port's plain path) in about two minutes; the tests
+Runs on the CPU (the port's plain path) in about four minutes; the tests
 hold the bounds, this script reports the measured values for PERF.md.
 """
 import tests.conftest  # noqa: F401  (JAX on the CPU before anything runs)
@@ -13,6 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from sr_livo_tpu_torch import convert
+
+from tests import test_torch_camera as C
+from tests import test_torch_color_map as CM
 from tests import test_torch_eskf as E
 from tests import test_torch_frame as F
 from tests import test_torch_knn_plane as K
@@ -22,6 +26,8 @@ from tests import test_torch_measurements as M
 from tests import test_torch_odometry as O
 from tests import test_torch_pipeline as P
 from tests import test_torch_plane_fit as PF
+from tests import test_torch_ransac as R
+from tests import test_torch_vision as VI
 from tests import test_torch_voxel_map as V
 
 ROWS = []
@@ -141,7 +147,6 @@ def frame_rows():
 
 def voxel_map_rows():
     from sr_livo_tpu.ops import voxel_map as jvm
-    from sr_livo_tpu_torch import convert
     from sr_livo_tpu_torch.ops import voxel_map as tvm
     coords = V.RNG.randint(-2 ** 31, 2 ** 31 - 1, (4000, 3)).astype(np.int32)
     row("voxel_map.voxel_hash (int32-overflowing)",
@@ -353,10 +358,193 @@ def pipeline_rows():
         f"residual counts differ on {n_res} frames)", [(tpos, jpos)])
 
 
+def image_rows():
+    from sr_livo_tpu.ops import image_ops as jio
+    from sr_livo_tpu.ops import lk as jlk
+    from sr_livo_tpu.runtime import native
+    from sr_livo_tpu_torch.ops import image_ops as tio
+    from sr_livo_tpu_torch.ops import lk as tlk
+    from sr_livo_tpu_torch.runtime.remap import remap_u8
+    from tests import test_torch_image_ops as IO
+    from tests import test_torch_lk as LK
+    rgb = IO._image(512, 640)
+    g = tio.rgb_to_gray(torch.as_tensor(rgb)).numpy()
+    row("image_ops.rgb_to_gray (512 x 640)",
+        [(g, jio.rgb_to_gray(jnp.asarray(rgb)))])
+    jp, tp = jio.build_pyramid(jnp.asarray(g), 3), tio.build_pyramid(
+        torch.as_tensor(g), 3)
+    row("image_ops.build_pyramid (4 levels)",
+        [(t.numpy(), j) for t, j in zip(tp, jp)])
+    row("image_ops.scharr_derivatives (4 levels)",
+        [(a.numpy(), b) for t, j in zip(tp, jp)
+         for a, b in zip(tio.scharr_derivatives(t),
+                         jio.scharr_derivatives(j))])
+    uv = np.c_[IO.RNG.uniform(-3, 643, 4000),
+               IO.RNG.uniform(-3, 515, 4000)].astype(np.float32)
+    row("image_ops.bilinear_sample (RGB, clamped)",
+        [(tio.bilinear_sample(torch.as_tensor(rgb), torch.as_tensor(uv)),
+          jio.bilinear_sample(jnp.asarray(rgb), jnp.asarray(uv)))])
+    tl = np.c_[IO.RNG.randint(-40, 100, 300),
+               IO.RNG.randint(-40, 100, 300)].astype(np.int32)
+    small = g[:15, :20]
+    row("image_ops.extract_patches (clamped, level < window)",
+        [(tio.extract_patches(torch.as_tensor(a), torch.as_tensor(tl),
+                              34).numpy(),
+          jio.extract_patches(jnp.asarray(a), jnp.asarray(tl), 34))
+         for a in (g, small)])
+    low = g * 0.4 + 60.0
+    tc = tio.clahe(torch.as_tensor(low), 3.0, 32).numpy()
+    jc = np.asarray(jio.clahe(jnp.asarray(low), 3.0, 32))
+    row(f"image_ops.clahe (512 x 640, 32 tiles; share within 1e-3: "
+        f"{IO._close_share(tc, jc, 1e-3):.6f})", [(tc, jc)])
+    te = tio.equalize_color_ycrcb(torch.as_tensor(rgb), 32).numpy()
+    je = np.asarray(jio.equalize_color_ycrcb(jnp.asarray(rgb), 32))
+    row(f"image_ops.equalize_color_ycrcb (share within 1e-3: "
+        f"{IO._close_share(te, je, 1e-3):.6f})", [(te, je)])
+    img = IO.RNG.randint(0, 255, (48, 64, 3)).astype(np.uint8)
+    m = np.stack(np.meshgrid(np.arange(64.0) * 0.97 + 0.6,
+                             np.arange(48.0) * 0.95 + 0.4), -1).astype(
+        np.float32)
+    row("runtime.remap.remap_u8 vs native.remap_u8 (grey levels)",
+        [(remap_u8(img, m), native.remap_u8(img, m))])
+    prev, cur = LK._frames()
+    (jpyr, jdx, jdy), (jcur, _, _), (tpyr, tdx, tdy), (tcur, _, _) = \
+        LK._pyramids(prev, cur)
+    pts = LK._points(300, *prev.shape)
+    valid = np.ones(300, bool)
+    jo, js = (np.asarray(a) for a in jlk.track_pyramidal(
+        jpyr, jcur, jdx, jdy, jnp.asarray(pts), jnp.asarray(valid)))
+    to, ts = (a.numpy() for a in tlk.track_pyramidal(
+        tpyr, tcur, tdx, tdy, torch.as_tensor(pts), torch.as_tensor(valid)))
+    both = ts & js
+    row(f"lk.track_pyramidal (status agree {(ts == js).mean():.4f}; "
+        f"positions where both ok)", [(to[both], jo[both])])
+
+
+def ransac_rows():
+    import jax
+    from sr_livo_tpu.ops import ransac as jr
+    from sr_livo_tpu_torch.ops import ransac as tr
+    key = jax.random.PRNGKey(3)
+    valid = np.zeros(40, bool)
+    valid[[5, 17, 30]] = True
+    row("ransac._sample_indices (3 of 40 valid, ties at -inf)",
+        [(tr._sample_indices(torch.as_tensor(R._noise(key, 64, 40)),
+                             torch.as_tensor(valid), 8).numpy(),
+          jr._sample_indices(key, 64, 8, 40, jnp.asarray(valid)))])
+    f_pairs, p_pairs = [], []
+    for seed in (0, 1, 2):
+        pts, p0, p1, valid, w, t_true = R._scene(seed)
+        key = jax.random.PRNGKey(seed)
+        f_pairs.append((tr.fundamental_ransac(
+            torch.as_tensor(p0), torch.as_tensor(p1), torch.as_tensor(valid),
+            torch.as_tensor(R._noise(key, 128, len(p0)))).numpy(),
+            jr.fundamental_ransac(jnp.asarray(p0), jnp.asarray(p1),
+                                  jnp.asarray(valid), key)))
+        q0 = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
+        t0 = (t_true + [0.05, -0.04, 0.06]).astype(np.float32)
+        intr = R.INTR.astype(np.float32)
+        tout = tr.pnp_ransac(torch.as_tensor(pts), torch.as_tensor(p1),
+                             torch.as_tensor(valid), torch.as_tensor(q0),
+                             torch.as_tensor(t0), torch.as_tensor(intr),
+                             torch.as_tensor(R._noise(key, 64, len(pts))))
+        jout = jr.pnp_ransac(jnp.asarray(pts), jnp.asarray(p1),
+                             jnp.asarray(valid), jnp.asarray(q0),
+                             jnp.asarray(t0), jnp.asarray(intr), key)
+        p_pairs += [(a.numpy(), b) for a, b in zip(tout, jout)]
+    row("ransac.fundamental_ransac (inlier masks, 3 scenes)", f_pairs)
+    row("ransac.pnp_ransac (inlier masks, q, t; 3 scenes)", p_pairs)
+
+
+def color_map_rows():
+    jm, tm = CM.maps.__wrapped__()
+    got = convert.color_map_to_numpy(tm)
+    row("color_map.color_insert, 4 inserts (reg, count, visit stamps, "
+        "dedup_sig, recent_slots, voxel table)",
+        [(got[k], getattr(jm, k)) for k in ("reg", "count", "vox_last_visit",
+                                            "dedup_sig", "recent_slots")]
+        + [(v, getattr(jm.vox, k)) for k, v in got["vox"].items()])
+    q_cw, t_cw, t_wc = CM._camera()
+    img = np.tile(np.arange(160, dtype=np.float32)[None, :, None],
+                  (120, 1, 3))
+    jm = CM.jcm.render_recent(jm, jnp.asarray(img), jnp.asarray(q_cw),
+                              jnp.asarray(t_cw), jnp.asarray(t_wc),
+                              jnp.asarray(CM.INTR), 3.0, cols=160, rows=120,
+                              max_render_points=512)
+    tm = CM.tcm.render_recent(tm, torch.as_tensor(img),
+                              torch.as_tensor(q_cw), torch.as_tensor(t_cw),
+                              torch.as_tensor(t_wc), torch.as_tensor(CM.INTR),
+                              3.0, cols=160, rows=120, max_render_points=512)
+    row("color_map.render_recent (rgb, cov)",
+        [(tm.rgb.numpy(), jm.rgb), (tm.cov_rgb.numpy(), jm.cov_rgb)])
+    row("color_map.render_recent (n_rgb)", [(tm.n_rgb.numpy(), jm.n_rgb)])
+    j = CM.jcm.select_points_for_projection(
+        jm, jnp.asarray(q_cw), jnp.asarray(t_cw), jnp.asarray(t_wc),
+        jnp.asarray(CM.INTR), 3.0, max_out=256, cols=160, rows=120,
+        grid_px=10)
+    t = CM.tcm.select_points_for_projection(
+        tm, torch.as_tensor(q_cw), torch.as_tensor(t_cw),
+        torch.as_tensor(t_wc), torch.as_tensor(CM.INTR), max_out=256,
+        cols=160, rows=120, grid_px=10)
+    ok = t[2].numpy()
+    row("color_map.select_points_for_projection (ids, mask)",
+        [(t[0].numpy()[ok], np.asarray(j[0])[ok]), (ok, j[2])])
+
+
+def camera_rows():
+    from sr_livo_tpu.models import camera as jcam
+    from sr_livo_tpu_torch.models import camera as tcam
+    rng = np.random.RandomState(5)
+    q_wi, t_wi, pw, px, vel = C._reproj_scene(rng)
+    valid = rng.rand(len(pw)) < 0.9
+    jc, tc = C._start()
+    for n_new in (100, 3, 900):
+        jc, _ = jcam.vio_esikf(
+            jc, jnp.asarray(q_wi.numpy()), jnp.asarray(t_wi.numpy()),
+            jnp.asarray(pw), jnp.asarray(px), jnp.asarray(vel),
+            jnp.asarray(valid), n_new)
+        tc, _ = tcam.vio_esikf(
+            tc, q_wi, t_wi, torch.as_tensor(pw), torch.as_tensor(px),
+            torch.as_tensor(vel), torch.as_tensor(valid), n_new)
+    row("camera.vio_esikf, 3 steps (td, q_ic, t_ic, intr, cov)",
+        state_pairs(tc, jc))
+
+
+def vision_rows():
+    sim = VI.jsyn.simulate(**VI.SIM)
+    jp, jv, tp, tv = VI.runs.__wrapped__(sim)
+    tt, tpos, _ = tp.trajectory()
+    _, jpos, _ = jp.trajectory()
+    kept_t = np.array([s[1] for s in tv.stats])
+    kept_j = np.array([s[1] for s in jv.stats])
+    col_t = int((tv.color_map.reg_valid & (tv.color_map.n_rgb >= 3)).sum())
+    col_j = int((np.asarray(jv.color_map.reg_valid)
+                 & (np.asarray(jv.color_map.n_rgb) >= 3)).sum())
+    ate = VI.tum.ate_rmse(tt, tpos, sim.gt_times, sim.gt_pos, align=True)
+    row(f"vision LIVO run, {len(tt)} frames, {len(kept_t)} vision steps "
+        f"(max position gap {np.linalg.norm(tpos - jpos, axis=1).max():.3e}"
+        f" m; ATE port {ate:.6f} m; kept tracks differ on "
+        f"{int((kept_t != kept_j).sum())} frames by at most "
+        f"{int(np.abs(kept_t - kept_j).max())}; colored points {col_t} / "
+        f"{col_j}; td {float(tv.camera.td):.3e} / {float(jv.camera.td):.3e}"
+        f"; intrinsics)", [(tv.camera.intr.numpy(), jv.camera.intr)])
+    cam = (52.0, 50.0, 40.0, 30.0)
+    kw = dict(r_imu_camera=VI.R_CFG, dist_coeffs=[-0.28, 0.07, 8e-4, -2e-4,
+                                                  0.0])
+    row("synthetic.render_image (torch float64 on the CPU vs numpy, "
+        "60 x 80, distorted)",
+        [(VI.tsyn.render_image(VI.tsyn.SyntheticWorld(), VI.tsyn.Trajectory(),
+                               t, cam, (60, 80), device="cpu", **kw),
+          VI.jsyn.render_image(VI.jsyn.SyntheticWorld(), VI.jsyn.Trajectory(),
+                               t, cam, (60, 80), **kw))
+         for t in (0.3, 6.1)])
+
+
 def main():
     for fn in (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
                plane_rows, knn_plane_rows, lio_rows, odometry_rows,
-               pipeline_rows):
+               pipeline_rows, image_rows, ransac_rows, color_map_rows,
+               camera_rows, vision_rows):
         fn()
     print("| function | max abs error | bit-exact |")
     print("| --- | --- | --- |")
