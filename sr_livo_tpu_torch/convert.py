@@ -1,16 +1,18 @@
-"""Carry filter state, maps and tracks between numpy and the port's tensors.
+"""Carry filter state, maps, tracks and backend inputs between numpy and
+the port's tensors.
 
-The JAX package's `EskfState`, `VoxelMap`, `CameraState`, `ColorMap` and
-`TrackState` have the same field names and layouts as the port's, so a
-state or map taken out of either package as numpy arrays (a dict, or a
-NamedTuple whose fields convert with `np.asarray`) can be fed to the
-other; the parity tests do that to give both packages the same filter
-state, the same maps and the same tracks.
+The JAX package's `EskfState`, `VoxelMap`, `CameraState`, `ColorMap`,
+`TrackState`, `PoseGraph` and `KeyframeWindow` have the same field names
+and layouts as the port's, so a state or map taken out of either package
+as numpy arrays (a dict, or a NamedTuple whose fields convert with
+`np.asarray`) can be fed to the other; the parity tests do that to give
+both packages the same inputs.  Backend keyframes and pose-graph edges
+are host records (dataclass / dict of numpy arrays) in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -20,6 +22,9 @@ from sr_livo_tpu_torch.models.eskf import EskfState
 from sr_livo_tpu_torch.models.vision import TrackState
 from sr_livo_tpu_torch.ops.color_map import ColorMap
 from sr_livo_tpu_torch.ops.voxel_map import VoxelMap
+from sr_livo_tpu_torch.parallel.ba import KeyframeWindow
+from sr_livo_tpu_torch.parallel.backend import Keyframe
+from sr_livo_tpu_torch.parallel.pose_graph import PoseGraph
 
 
 def _get(obj, k):
@@ -102,3 +107,44 @@ def tracks_from_numpy(obj, device="cpu") -> TrackState:
 
 def tracks_to_numpy(tracks: TrackState) -> Dict[str, np.ndarray]:
     return _to_numpy(tracks)
+
+
+_GRAPH_DTYPES = {"q": torch.float32, "t": torch.float32,
+                 "edge_i": torch.int64, "edge_j": torch.int64,
+                 "q_meas": torch.float32, "t_meas": torch.float32,
+                 "rot_w": torch.float32, "t_w": torch.float32,
+                 "edge_valid": torch.bool}
+
+
+def pose_graph_from_numpy(obj, device="cpu") -> PoseGraph:
+    """A PoseGraph (edge indices as int64, the index type of torch)."""
+    return _to_torch(PoseGraph, obj, device, _GRAPH_DTYPES)
+
+
+_WINDOW_DTYPES = {"q": torch.float32, "t": torch.float32,
+                  "points": torch.float32, "pt_valid": torch.bool,
+                  "kf_valid": torch.bool}
+
+
+def keyframe_window_from_numpy(obj, device="cpu") -> KeyframeWindow:
+    return _to_torch(KeyframeWindow, obj, device, _WINDOW_DTYPES)
+
+
+def keyframes_from_numpy(keyframes) -> List[Keyframe]:
+    """Backend keyframes from objects (or dicts) with time, q, t, points
+    and valid, copied into host arrays."""
+    return [Keyframe(time=float(_get(k, "time")),
+                     q=np.array(_get(k, "q"), np.float32),
+                     t=np.array(_get(k, "t"), np.float32),
+                     points=np.array(_get(k, "points"), np.float32),
+                     valid=np.array(_get(k, "valid"), bool))
+            for k in keyframes]
+
+
+def edges_from_numpy(edges) -> List[dict]:
+    """Backend pose-graph edges (dicts of i, j, q, t, rot_w, t_w), copied."""
+    return [dict(i=int(e["i"]), j=int(e["j"]),
+                 q=np.array(e["q"], np.float32),
+                 t=np.array(e["t"], np.float32),
+                 rot_w=float(e["rot_w"]), t_w=float(e["t_w"]))
+            for e in edges]

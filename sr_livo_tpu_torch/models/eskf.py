@@ -286,6 +286,44 @@ def observe(state: EskfState, d_x: torch.Tensor) -> EskfState:
     return state._replace(p=p, q=q, v=v, ba=ba, bg=bg, g=g)
 
 
+def observe_pose(state: EskfState, translation: torch.Tensor,
+                 rotation_q: torch.Tensor, trans_noise: float = 0.001,
+                 ang_noise: float = 0.001) -> EskfState:
+    """Direct pose observation update (eskfEstimator::observePose,
+    eskfEstimator.cpp:232-260): a 6-dim pose measurement with the
+    inverse-right-Jacobian attitude H block, then the error-state reset.
+    The 6x6 innovation inverse never reads its status back to the host."""
+    f = dict(dtype=state.p.dtype, device=state.p.device)
+    eye3 = torch.eye(3, **f)
+    h = torch.zeros((6, 17), **f)
+    h[0:3, 0:3] = eye3
+    h[3:6, 3:6] = lie.inv_jr_so3(lie.quat_to_so3(state.q))
+
+    v_diag = torch.cat([torch.full((3,), trans_noise, **f),
+                        torch.full((3,), ang_noise, **f)])
+    s = h @ state.cov @ h.T + torch.diag(v_diag)
+    k = state.cov @ h.T @ torch.linalg.inv_ex(s).inverse
+
+    upd_q = lie.quat_mul(lie.quat_conj(state.q), rotation_q)
+    upd = torch.cat([translation - state.p, lie.quat_to_so3(upd_q)])
+    d_x = k @ upd
+
+    # updateAndReset (eskfEstimator.cpp:262-284)
+    new = state._replace(
+        p=state.p + d_x[0:3],
+        q=lie.quat_normalize(lie.quat_mul(state.q,
+                                          lie.exp_so3_quat(d_x[3:6]))),
+        v=state.v + d_x[6:9],
+        ba=state.ba + d_x[9:12],
+        bg=state.bg + d_x[12:15],
+        g=state.g + lie.s2_bx(state.g) @ d_x[15:17])
+    eye17 = torch.eye(17, **f)
+    cov = (eye17 - k @ h) @ state.cov
+    j = eye17.clone()
+    j[3:6, 3:6] = eye3 - 0.5 * lie.skew(d_x[3:6])
+    return new._replace(cov=j @ cov @ j.T)
+
+
 class ImuInitializer:
     """Host-side static IMU initialization (eskfEstimator.cpp:43-118).
 

@@ -2,9 +2,10 @@
 
 Owns the sweep cutter, the IMU initializer, the LIO engine and, when a
 vision module is attached, the camera ESIKFs and the colored map; the host
-cuts and pads the streams, every sweep runs on one device.  The mapping
-backend, live streaming, map eviction and checkpoints are not part of
-this port yet.
+cuts and pads the streams, every sweep runs on one device.  Optional
+long-run parts: far-voxel eviction (`enable_map_eviction`), the mapping
+backend (`backend=`), live output files (`stream=`) and checkpoints
+(`save_checkpoint` / `load_checkpoint`).
 
 Reference topology: lioOptimization::run()/process()
 (src/lioOptimization.cpp:1428-1584, 1037-1131).
@@ -24,6 +25,8 @@ import torch
 from sr_livo_tpu_torch.config import LivoConfig
 from sr_livo_tpu_torch.models import eskf as eskf_mod
 from sr_livo_tpu_torch.models.odometry import LioEngine, SweepInput, WireSweep
+from sr_livo_tpu_torch.ops import voxel_map as vm
+from sr_livo_tpu_torch.runtime import checkpoint
 from sr_livo_tpu_torch.runtime import measurements as meas_mod
 from sr_livo_tpu_torch.runtime import tum
 from sr_livo_tpu_torch.runtime.pcd import save_xyz_points
@@ -53,19 +56,23 @@ def _records_from_rows(pending, rows) -> List[FrameRecord]:
 
 
 class LivoPipeline:
-    def __init__(self, cfg: LivoConfig, vision=None, device="cuda"):
-        """`vision`: an attached models.vision.VisionModule on the same
-        device, or None for the LIO-only pipeline."""
-        if cfg.enable_map_eviction:
-            raise NotImplementedError(
-                "map eviction (compact_map) is not ported yet")
+    def __init__(self, cfg: LivoConfig, vision=None, backend=None,
+                 stream=None, device="cuda"):
+        """`vision`: an attached models.vision.VisionModule, `backend`: a
+        parallel.backend.MappingBackend, both on the pipeline's device, or
+        None.  `stream`: a runtime.streaming.StreamPublisher that writes
+        live pose, path and colored-map files (the reference's publishers,
+        lioOptimization.cpp:1186-1384), or None."""
         self.cfg = cfg
         self.engine = LioEngine(cfg, device=device)
         self.device = self.engine.device
-        if vision is not None and vision.device != self.device:
-            raise ValueError(f"vision module on {vision.device}, pipeline on "
-                             f"{self.device}")
+        for name, part in (("vision module", vision), ("backend", backend)):
+            if part is not None and part.device != self.device:
+                raise ValueError(f"{name} on {part.device}, pipeline on "
+                                 f"{self.device}")
         self.vision = vision
+        self.backend = backend
+        self.stream = stream
         self.cutter = meas_mod.SweepCutter(
             cfg.sweep_interval,
             time_diff_enable=cfg.imu_options.time_diff_enable)
@@ -84,8 +91,9 @@ class LivoPipeline:
         # read back to FrameRecords in one transfer on first read.
         self._records: List[FrameRecord] = []
         self._pending_records: list = []     # (time, rendering, (19,) dev)
-        self.n_retired = 0                   # frames retired to disk
-        if cfg.retire_frames:
+        self.n_retired = 0                   # frames retired to disk/stream
+        self._evict_dropped = None           # last compact_map's drop count
+        if cfg.retire_frames and stream is None:
             # retirement appends; start the output files fresh
             os.makedirs(cfg.output_path, exist_ok=True)
             for name in ("pose.txt", "velocity.txt", "bias.txt"):
@@ -289,6 +297,18 @@ class LivoPipeline:
                             out.frame_valid.cpu().numpy(),
                             os.path.join(d, f"{self.index_frame:06d}.pcd"))
 
+        if (self.cfg.enable_map_eviction
+                and self.index_frame % self.cfg.eviction_every_n_frames == 0):
+            # Slot-reclaiming eviction (robin_map erase semantics,
+            # lioOptimization.cpp:556-572): a fresh table of the near
+            # voxels.  The dropped count stays on the device.
+            with self.timers.stage("evict"):
+                self.voxel_map, self._evict_dropped = vm.compact_map(
+                    self.voxel_map, self.state.p,
+                    distance=self.cfg.odometry_options.max_distance,
+                    max_probe=self.cfg.shapes.map_max_probe)
+                self.timers.synchronize()
+
         if self.vision is not None:
             if meas.rendering and meas.image is not None:
                 # rendered frame: the colored-map insert of this sweep runs
@@ -305,6 +325,11 @@ class LivoPipeline:
                         out.summary.success, meas.time_image)
                     self.timers.synchronize()
 
+        if self.backend is not None:
+            with self.timers.stage("backend"):
+                self.backend.maybe_add_keyframe(self, out, meas)
+                self.timers.synchronize()
+
         if self.cfg.icp.debug_print:
             # ICP failure diagnostics (optimize.cpp:110-123); reads the
             # packed record back synchronously — debug mode only.
@@ -316,6 +341,11 @@ class LivoPipeline:
 
         self._pending_records.append(
             (meas.time_image, meas.rendering, out.record))
+        if self.stream is not None:
+            self.stream.publish_frame(
+                meas.time_image, out.record,
+                color_map=(self.vision.color_map
+                           if self.vision is not None else None))
         if self.cfg.retire_frames:
             self._maybe_retire()
         self.index_frame += 1
@@ -326,7 +356,9 @@ class LivoPipeline:
         `num_for_initialization` frames before filter init and 2 afterwards
         (lioOptimization.cpp:1101-1130), appending retired poses to the
         output files in `retire_batch`-sized batches (one device->host
-        transfer per batch)."""
+        transfer per batch).  With a StreamPublisher attached the records
+        are already mirrored to odometry_live.txt and retired entries are
+        dropped."""
         keep = (2 if self.initialized
                 else self.cfg.odometry_options.num_for_initialization)
         if len(self._pending_records) < keep + self.cfg.retire_batch:
@@ -341,7 +373,9 @@ class LivoPipeline:
         n_ret = len(self._pending_records) - keep
         retired = self._pending_records[:n_ret]
         self._pending_records = self._pending_records[n_ret:]
-        self._append_retired(_records_from_rows(retired, self._rows(retired)))
+        if self.stream is None:
+            self._append_retired(_records_from_rows(retired,
+                                                    self._rows(retired)))
         self.n_retired += n_ret
 
     def _append_retired(self, recs: List[FrameRecord]):
@@ -379,12 +413,12 @@ class LivoPipeline:
         self._records = list(value)
         self._pending_records = []
 
-    # ---- checkpoint / resume (not ported yet) -----------------------------
+    # ---- checkpoint / resume ---------------------------------------------
     def save_checkpoint(self, path: str):
-        raise NotImplementedError("checkpoints are not ported yet")
+        checkpoint.save_pipeline(self, path)
 
     def load_checkpoint(self, path: str):
-        raise NotImplementedError("checkpoints are not ported yet")
+        return checkpoint.load_pipeline(self, path)
 
     # ---- output -----------------------------------------------------------
     def trajectory(self):
@@ -401,7 +435,7 @@ class LivoPipeline:
         still-live tail (append into the same files)."""
         out_dir = out_dir or self.cfg.output_path
         os.makedirs(out_dir, exist_ok=True)
-        if (self.cfg.retire_frames and self.n_retired
+        if (self.cfg.retire_frames and self.n_retired and self.stream is None
                 and out_dir == self.cfg.output_path):
             self._append_retired(self.records)
             self._records = []

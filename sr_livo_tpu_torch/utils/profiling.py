@@ -26,6 +26,7 @@ class StageTimers:
         self.device = torch.device(device)
         self.total: Dict[str, float] = defaultdict(float)
         self.count: Dict[str, int] = defaultdict(int)
+        self.longest: Dict[str, float] = defaultdict(float)
 
     def synchronize(self):
         """Wait for the device when `sync` is on (call inside a stage)."""
@@ -38,8 +39,10 @@ class StageTimers:
         try:
             yield
         finally:
-            self.total[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.total[name] += dt
             self.count[name] += 1
+            self.longest[name] = max(self.longest[name], dt)
 
     def report(self) -> Dict[str, Dict[str, float]]:
         return {
@@ -47,6 +50,7 @@ class StageTimers:
                 "total_s": self.total[name],
                 "count": self.count[name],
                 "mean_ms": 1000.0 * self.total[name] / max(self.count[name], 1),
+                "max_ms": 1000.0 * self.longest[name],
             }
             for name in sorted(self.total)
         }

@@ -17,6 +17,15 @@ test_pallas_plane.py: the sign-free normal 2e-3 and a2d 2e-4 on rows with
 at least 8 neighbours; for the full row, the `good` masks agree on more
 than 99.5% of rows and, on rows good in both, h within 2e-4 and h_x within
 2e-3.
+
+The backend's two association shapes run through the same entry with an
+all-true mask: the windowed BA's 4 keyframes x 1024 rows (zero-padded
+rows past each keyframe's valid prefix) at 0.6 m voxels on a map keyed at
+1.0 m, and loop verification's 1024 rows at M = 10 on a temporary
+2^14 x 20 map of 0.5 m voxels; every row is associated there.  The BA and
+the verification then run end to end on the card and on the CPU with the
+same inputs: poses within 1e-4, the fitness within one inlier (the card's
+sums use atomics, so they are not bitwise the CPU's).
 """
 import numpy as np
 import pytest
@@ -149,3 +158,141 @@ def test_knn_plane_assoc_reads_nothing_back(scene):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(out[3].sum()) > 0
+
+
+def _all_rows(n):
+    return torch.ones(n, dtype=torch.bool, device="cuda")
+
+
+def _check_all_rows(vmap, world, kw, min_nb):
+    """Kernel vs plain over every row of `world` (all-true mask)."""
+    thr = _thr(1)
+    valid = _all_rows(world.shape[0])
+    plane_fit.reset_launches()
+    n_k, a_k, c_k, f_k = plane_fit.knn_plane_assoc(vmap, world, valid, thr,
+                                                   **kw)
+    assert plane_fit.launches["knn_plane_assoc"] == 1
+    n_p, a_p, c_p, f_p = plane_fit.knn_plane_assoc_plain(vmap, world, valid,
+                                                         thr, **kw)
+    _, _, dists = vm.knn(vmap, world, threshold_capacity=thr, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(f_k, f_p, atol=0, rtol=0)
+    apart = ((dists[:, 1] - dists[:, 0]) > 1e-6) | (f_p <= 1)
+    torch.testing.assert_close(c_k[apart], c_p[apart], atol=0, rtol=0)
+    rows = f_p >= min_nb
+    assert rows.sum() > world.shape[0] // 4
+    sign = torch.where((n_k * n_p).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    torch.testing.assert_close((n_k * sign)[rows], n_p[rows], atol=ATOL_HX,
+                               rtol=0)
+    torch.testing.assert_close(a_k[rows], a_p[rows], atol=ATOL_H, rtol=0)
+    assert torch.isfinite(n_k).all() and torch.isfinite(c_k).all()
+
+
+@pytest.mark.gpu
+def test_ba_window_shape_matches_plain_on_gpu(scene):
+    """4 x 1024 flattened window rows, each keyframe's rows past its valid
+    prefix zero (they map to the origin voxel), at 0.6 m voxels on the
+    1.0 m map, M = 20."""
+    vmap, t = scene
+    rng = np.random.RandomState(7)
+    src = t["world"].cpu().numpy()
+    rows = []
+    for n_valid in (1024, 700, 431, 900):
+        w = np.zeros((1024, 3), np.float32)
+        w[:n_valid] = (src[rng.randint(0, Q, n_valid)]
+                       + rng.randn(n_valid, 3).astype(np.float32) * 0.05)
+        rows.append(w)
+    world = torch.as_tensor(np.concatenate(rows), device="cuda")
+    _check_all_rows(vmap, world, dict(voxel_size=0.6, max_neighbors=20,
+                                      max_probe=16, nb_voxels=1), 8)
+
+
+@pytest.fixture(scope="module")
+def loop_scene():
+    """Two 1024-point scans of a floor and two walls (1 cm noise) 0.4 m
+    apart, the first in a temporary 2^14 x 20 map at 0.5 m voxels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.RandomState(13)
+    u = rng.uniform(-6, 6, (8000, 2))
+    world = np.concatenate([
+        np.c_[u[:, 0], u[:, 1], np.zeros(8000)],
+        np.c_[np.full(8000, 6.0), u[:, 0], u[:, 1] * 0.3 + 1.5],
+        np.c_[u[:, 0], np.full(8000, 6.0), u[:, 1] * 0.3 + 1.5]])
+    world = (world + rng.randn(*world.shape) * 0.01).astype(np.float32)
+    scans = [world[rng.choice(len(world), 1024, replace=False)]
+             - np.array(t, np.float32) for t in ([0.5, -0.3, 1.0],
+                                                 [0.9, 0.0, 1.1])]
+    valid = np.ones((2, 1024), bool)
+    valid[1, 900:] = False
+    scans[1][900:] = 0.0
+    return scans, valid
+
+
+@pytest.mark.gpu
+def test_loop_verification_shape_matches_plain_on_gpu(loop_scene):
+    scans, valid = loop_scene
+    dev = torch.device("cuda")
+    tmp = vm.make_map(1 << 14, 20, device=dev)
+    tmp, _ = vm.insert(tmp, torch.as_tensor(scans[0], device=dev),
+                       torch.as_tensor(valid[0], device=dev), 0.5, 0.0, 16)
+    world = torch.as_tensor(scans[1], device=dev) + torch.tensor(
+        [0.02, -0.01, 0.0], device=dev)
+    _check_all_rows(tmp, world, dict(voxel_size=0.5, max_neighbors=10,
+                                     max_probe=16, nb_voxels=1), 6)
+
+
+@pytest.mark.gpu
+def test_backend_solves_on_gpu_match_cpu(scene, loop_scene):
+    """windowed_ba and verify_closure on the card against the same calls
+    on the CPU; each association is one kernel launch."""
+    from sr_livo_tpu_torch.parallel import ba, loop_closure
+    vmap, t = scene
+    rng = np.random.RandomState(3)
+    k, n = 4, 1024
+    pts = np.zeros((k, n, 3), np.float32)
+    ok = np.zeros((k, n), bool)
+    q = np.tile(np.array([1, 0, 0, 0], np.float32), (k, 1))
+    tr = np.stack([[0.3 * i, 0.1 * i, 0.0] for i in range(k)]).astype(
+        np.float32)
+    src = t["world"].cpu().numpy()
+    for i, n_valid in enumerate((1024, 800, 600, 1000)):
+        pts[i, :n_valid] = src[rng.randint(0, Q, n_valid)] - tr[i]
+        ok[i, :n_valid] = True
+    tr[1:] += rng.randn(k - 1, 3).astype(np.float32) * 0.03
+    q_odo = np.tile(np.array([1, 0, 0, 0], np.float32), (k - 1, 1))
+    t_odo = np.full((k - 1, 3), [0.3, 0.1, 0.0], np.float32)
+    cpu_map = vm.VoxelMap(*(a.cpu() for a in vmap))
+    out = {}
+    for dev, m in (("cuda", vmap), ("cpu", cpu_map)):
+        def up(a):
+            return torch.as_tensor(a, device=dev)
+        window = ba.KeyframeWindow(q=up(q), t=up(tr), points=up(pts),
+                                   pt_valid=up(ok),
+                                   kf_valid=up(np.ones(k, bool)))
+        plane_fit.reset_launches()
+        out[dev] = ba.windowed_ba(m, window, up(q_odo), up(t_odo),
+                                  voxel_size=0.6, min_neighbors=8, iters=2)
+        if dev == "cuda":
+            assert plane_fit.launches["knn_plane_assoc"] == 2
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a.cpu() - b).abs().max()) < 1e-4
+
+    scans, valid = loop_scene
+    res = {}
+    for dev in ("cuda", "cpu"):
+        def up(a):
+            return torch.as_tensor(np.asarray(a), device=dev)
+        q0 = up(np.array([1, 0, 0, 0], np.float32))
+        plane_fit.reset_launches()
+        res[dev] = loop_closure.verify_closure(
+            up(scans[0]), up(valid[0]), up(scans[1]), up(valid[1]),
+            q0, up(np.array([0.5, -0.3, 1.0], np.float32)),
+            q0, up(np.array([0.95, -0.05, 1.1], np.float32)))
+        if dev == "cuda":
+            assert plane_fit.launches["knn_plane_assoc"] == 9
+    a, b = res["cuda"], res["cpu"]
+    assert float((a.q_meas.cpu() - b.q_meas).abs().max()) < 1e-4
+    assert float((a.t_meas.cpu() - b.t_meas).abs().max()) < 1e-4
+    assert abs(float(a.fitness) - float(b.fitness)) * 900 <= 1.0
+    assert float(b.fitness) > 0.6

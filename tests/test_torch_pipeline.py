@@ -181,15 +181,6 @@ def test_convert_roundtrips_state(runs):
         assert torch.equal(v, getattr(tp.state, name))
 
 
-def test_unported_options_raise():
-    cfg = _port_cfg()
-    cfg.enable_map_eviction = True
-    with pytest.raises(NotImplementedError):
-        TPipe(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TPipe(_port_cfg(), device="cpu").save_checkpoint("unused")
-
-
 def test_debug_output_dumps_frame_clouds(sims, tmp_path):
     """debug_output writes each frame's de-skewed world-frame cloud as a
     binary PCD (lioOptimization.cpp:1091-1099)."""

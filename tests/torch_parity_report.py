@@ -4,7 +4,7 @@ absolute difference and whether the outputs are bit-exact.
 
     JAX_PLATFORMS=cpu python -m tests.torch_parity_report
 
-Runs on the CPU (the port's plain path) in about four minutes; the tests
+Runs on the CPU (the port's plain path) in about eight minutes; the tests
 hold the bounds, this script reports the measured values for PERF.md.
 """
 import tests.conftest  # noqa: F401  (JAX on the CPU before anything runs)
@@ -15,18 +15,25 @@ import torch
 
 from sr_livo_tpu_torch import convert
 
+from tests import test_torch_ba as BA
+from tests import test_torch_backend as BE
 from tests import test_torch_camera as C
+from tests import test_torch_checkpoint as CK
 from tests import test_torch_color_map as CM
 from tests import test_torch_eskf as E
+from tests import test_torch_eviction as EV
 from tests import test_torch_frame as F
 from tests import test_torch_knn_plane as K
 from tests import test_torch_lie as L
 from tests import test_torch_lio as I
+from tests import test_torch_loop_closure as LC
 from tests import test_torch_measurements as M
 from tests import test_torch_odometry as O
 from tests import test_torch_pipeline as P
 from tests import test_torch_plane_fit as PF
+from tests import test_torch_pose_graph as PG
 from tests import test_torch_ransac as R
+from tests import test_torch_streaming as ST
 from tests import test_torch_vision as VI
 from tests import test_torch_voxel_map as V
 
@@ -540,11 +547,134 @@ def vision_rows():
          for t in (0.3, 6.1)])
 
 
+class _TmpDirs:
+    """Stands in for pytest's tmp_path_factory."""
+
+    def mktemp(self, name):
+        import pathlib
+        import tempfile
+        return pathlib.Path(tempfile.mkdtemp(prefix=name))
+
+
+def long_run_rows():
+    import jax
+    from sr_livo_tpu.models import eskf as jeskf
+    from sr_livo_tpu.ops import voxel_map as jvm
+    from sr_livo_tpu.parallel import loop_closure as jlc
+    from sr_livo_tpu.parallel import pose_graph as jpg
+    from sr_livo_tpu_torch.models import eskf as teskf
+    from sr_livo_tpu_torch.ops import voxel_map as tvm
+    from sr_livo_tpu_torch.parallel import loop_closure as tlc
+    from sr_livo_tpu_torch.parallel import pose_graph as tpg
+
+    st = jeskf.init_state()._replace(p=jnp.asarray([1.0, 2.0, 0.5]))
+    q = np.array([0.99, 0.1, 0.0, 0.0], np.float32)
+    q /= np.linalg.norm(q)
+    t = np.array([1.05, 1.9, 0.52], np.float32)
+    row("eskf.observe_pose (all state fields)", state_pairs(
+        teskf.observe_pose(convert.eskf_state_from_numpy(st),
+                           torch.as_tensor(t), torch.as_tensor(q)),
+        jeskf.observe_pose(st, jnp.asarray(t), jnp.asarray(q))))
+
+    jm = EV.jax_map.__wrapped__()
+    loc = np.array([2.0, -1.0, 0.3], np.float32)
+    row("voxel_map.remove_far_voxels (all map fields)", state_pairs(
+        tvm.remove_far_voxels(convert.voxel_map_from_numpy(jm),
+                              torch.as_tensor(loc), 6.0),
+        jvm.remove_far_voxels(jm, jnp.asarray(loc), 6.0)))
+    for dist, probe in ((6.0, 16), (100.0, 2)):
+        tmap, tdrop = tvm.compact_map(convert.voxel_map_from_numpy(jm),
+                                      torch.as_tensor(loc), distance=dist,
+                                      max_probe=probe)
+        jmap, jdrop = jvm.compact_map_impl(jm, jnp.asarray(loc),
+                                           distance=dist, max_probe=probe)
+        row(f"voxel_map.compact_map, {dist} m, max_probe {probe} (all map "
+            f"fields, n_dropped {int(tdrop)} / {int(jdrop)})",
+            state_pairs(tmap, jmap) + [(tdrop.numpy(), jdrop)])
+
+    g = PG.graph96.__wrapped__()
+    for name in ("dense", "pcg"):
+        qt, tt = getattr(tpg, f"optimize_pose_graph_{name}")(
+            convert.pose_graph_from_numpy(g), iters=6)
+        qj, tj = getattr(jpg, f"optimize_pose_graph_{name}")(g, iters=6)
+        row(f"pose_graph.optimize_pose_graph_{name} (96 nodes, 6 iterations;"
+            " q, t)", [(qt.numpy(), qj), (tt.numpy(), tj)])
+
+    world, jmap, tmap, rng = BA.scene.__wrapped__()
+    for n_valid, iters in ((None, 4), ([256, 180, 97, 230], 2)):
+        window, q_odo, t_odo, _, _ = BA._window(world, rng, n_valid=n_valid)
+        qj, tj, qt, tt = BA._run_both(jmap, tmap, window, q_odo, t_odo, iters)
+        row(f"ba.windowed_ba (4 x 256 rows{', padded' if n_valid else ''}, "
+            f"{iters} iterations; q, t)", [(qt, qj), (tt, tj)])
+
+    for case in ("circle", "lissajous"):
+        LC.test_find_candidates_identical(case)
+    row("loop_closure.find_candidates (circle, Lissajous; identical "
+        "pairs)", [])
+    args = LC._scene("revisit")
+    rt = tlc.verify_closure(*(torch.as_tensor(np.array(a)) for a in args))
+    with jax.disable_jit():
+        rj = jlc.verify_closure(*(jnp.asarray(a) for a in args))
+    rc = jlc.verify_closure(*(jnp.asarray(a) for a in args))
+    for name, r in (("op by op", rj), ("compiled", rc)):
+        row(f"loop_closure.verify_closure vs JAX {name} (revisit; fitness "
+            f"{float(rt.fitness):.6f} / {float(r.fitness):.6f}, t_obs "
+            f"{float(rt.t_observability):.6f} / "
+            f"{float(r.t_observability):.6f}; q_meas, t_meas)",
+            [(rt.q_meas.numpy(), r.q_meas), (rt.t_meas.numpy(), r.t_meas)])
+
+    sim, _, jb, _, tb = BE.backend_runs.__wrapped__()
+    _, t_opt, _ = tb.optimized_trajectory()
+    _, jt_opt, _ = jb.optimized_trajectory()
+    row(f"MappingBackend, 9 s run ({len(tb.keyframes)} keyframes, "
+        f"{len(tb.edges)} edges, {tb.ba_runs} BA runs; optimized "
+        "trajectory)", [(t_opt, jt_opt)])
+    jb2, tb2, _ = BE._drifted_backends()
+    cfg = BE._cfg()
+    jp, tp = BE._Pipe(), BE._Pipe()
+    jp.cfg, jp.state = cfg, jeskf.init_state()
+    jp.voxel_map = jvm.make_map(cfg.shapes.map_capacity, 20)
+    tp.cfg, tp.device = BE._port_cfg(cfg), torch.device("cpu")
+    tp.state = teskf.init_state()
+    tp.voxel_map = tvm.make_map(cfg.shapes.map_capacity, 20)
+    jb2.apply_pose_correction(jp)
+    tb2.apply_pose_correction(tp)
+    tm = convert.voxel_map_to_numpy(tp.voxel_map)
+    row("MappingBackend.apply_pose_correction + _rebuild_map (map keys, "
+        "sig, counts, point_ids)",
+        [(tm[k], np.asarray(getattr(jp.voxel_map, k)))
+         for k in ("keys", "sig", "counts", "point_ids")])
+
+    _, jpe, tpe = EV.eviction_runs.__wrapped__()
+    row(f"eviction run, 12 m every 5 frames (map points "
+        f"{int(tvm.map_size(tpe.voxel_map))} / "
+        f"{int(jvm.map_size(jpe.voxel_map))}; positions)",
+        [(tpe.trajectory()[1], jpe.trajectory()[1])])
+
+    (jdir, _), (tdir, _, _), _ = ST.streams.__wrapped__(_TmpDirs())
+    row("StreamPublisher, 7 s LIVO run (odometry_live.txt rows)",
+        [(np.loadtxt(f"{tdir}/odometry_live.txt"),
+          np.loadtxt(f"{jdir}/odometry_live.txt"))])
+
+    sim = CK.sim.__wrapped__()
+    base = CK.jrun(CK.JPipe(CK._cfg()), sim)
+    first = CK.JPipe(CK._cfg())
+    CK._feed(first, sim, 0.0, 5.0)
+    path = str(_TmpDirs().mktemp("ckpt") / "jax.npz")
+    first.save_checkpoint(path)
+    resumed = CK.TPipe(CK._port_cfg(), device="cpu")
+    resumed.load_checkpoint(path)
+    CK._feed(resumed, sim, 5.0, 99.0)
+    row("checkpoint: JAX checkpoint at 5 s resumed by the port (positions "
+        "vs the JAX uninterrupted run)",
+        [(resumed.trajectory()[1], base.trajectory()[1])])
+
+
 def main():
     for fn in (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
                plane_rows, knn_plane_rows, lio_rows, odometry_rows,
                pipeline_rows, image_rows, ransac_rows, color_map_rows,
-               camera_rows, vision_rows):
+               camera_rows, vision_rows, long_run_rows):
         fn()
     print("| function | max abs error | bit-exact |")
     print("| --- | --- | --- |")
