@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only livo      # device + livo phases only
     python3 chip_smoke.py --only longrun   # device + longrun (+ its shapes)
     python3 chip_smoke.py --only resume    # device + resume phases only
+    python3 chip_smoke.py --only replay    # device + replay + demo phases
 
 Phases, each printing one JSON line:
 
@@ -66,16 +67,33 @@ Phases, each printing one JSON line:
      through and again checkpointed at 5 s and resumed in a fresh
      pipeline: the same frames, positions within 5e-3 m, the same colored
      points after the load; checkpoint bytes, save and load seconds.
+  10. replay — the real-data entry point: a 20 s bag of the r3live profile
+     of scripts/accuracy_gate.py (its world and `standard` trajectory, a
+     Livox cone at 10 Hz, IMU at 200 Hz, distorted 512 x 640 images
+     rendered on the card with the published calibration), written with
+     tests/rosbag_writer.py and replayed through `drivers.replay_bag`
+     into LivoPipeline with a VisionModule configured by
+     configs/r3live.yaml and the gate's overrides.  It prints the gate's
+     record, the replay's wall time, sweeps+images/s and host ms per
+     message class (bag read, parsers, driver, native wire pack, native
+     remap), and checks the gate's bars (ATE < 0.08 m, registered share
+     >= 0.95, mean tracks >= 60), `knn_plane_assoc` launched once per
+     IEKF update (once per frame, twice for a frame whose weak solve
+     `retry_wider_neighborhood` re-runs) and no plain kNN call on the
+     card;
+  11. demo    — `python -m sr_livo_tpu_torch.runtime.demo --device cuda
+     --duration 10 --vision` in a subprocess: exit 0 and pose.txt.
 
 Each entry's times: device ms per launch from CUDA-graph replay (`ms`),
 one eager call of the kernel (`call_ms`) and of the plain version
 (`plain_ms`) as the path makes them, and the least time the card could
 take for the same work (`bound_ms`, by bytes or operations, counted from
-this run's inputs; `launches`, `launches_livo`, `launches_backend`:
-the launches in the slice and livo runs, and the backend's own in the
-longrun run).  Then it prints the `{"kernels": [...]}` summary, the
-nvidia-smi line and, last, `{"ok": true, "device": {...}}`.  Any failed
-phase raises and the script exits non-zero without that last line.
+this run's inputs; `launches`, `launches_livo`, `launches_backend`,
+`launches_replay`: the launches in the slice and livo runs, the
+backend's own in the longrun run, and those of the bag replay).  Then it
+prints the `{"kernels": [...]}` summary, the nvidia-smi line and, last,
+`{"ok": true, "device": {...}}`.  Any failed phase raises and the script
+exits non-zero without that last line.
 Imports nothing of JAX.
 """
 
@@ -96,11 +114,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from sr_livo_tpu_torch import kernels  # noqa: E402
-from sr_livo_tpu_torch.config import LivoConfig  # noqa: E402
+from sr_livo_tpu_torch.config import LivoConfig, load_config  # noqa: E402
+from sr_livo_tpu_torch.models import lio  # noqa: E402
 from sr_livo_tpu_torch.models.vision import VisionModule  # noqa: E402
 from sr_livo_tpu_torch.ops import plane_fit  # noqa: E402
 from sr_livo_tpu_torch.ops import voxel_map as vm  # noqa: E402
 from sr_livo_tpu_torch.pipeline import LivoPipeline  # noqa: E402
+from sr_livo_tpu_torch.runtime import drivers, native  # noqa: E402
 from sr_livo_tpu_torch.runtime import synthetic, tum  # noqa: E402
 from sr_livo_tpu_torch.utils import lie  # noqa: E402
 from sr_livo_tpu_torch.utils.profiling import StageTimers  # noqa: E402
@@ -390,22 +410,54 @@ class Capture:
                 tuple(_to(device, a) for a in args), kw)
 
 
-class CudaKnnCalls:
-    """Within the block, counts calls of the plain kNN
-    (`voxel_map.knn`) on CUDA tensors."""
+class Spy:
+    """Within the block, wraps module or class attributes and passes every
+    call on.  Each target `(owner, name, key[, when])` adds the calls of
+    `owner.name` for which `when(*args, **kw)` holds (every call, without
+    `when`) to `calls[key]` and their host milliseconds to `ms[key]`; `n`
+    is the calls of all targets."""
 
-    def __init__(self):
-        self.orig, self.n = vm.knn, 0
+    def __init__(self, *targets):
+        self.targets, self.ms, self.calls, self.undo = targets, {}, {}, []
+
+    @property
+    def n(self) -> int:
+        return sum(self.calls.values())
+
+    def add(self, key, seconds):
+        self.ms[key] = self.ms.get(key, 0.0) + 1e3 * seconds
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def patch(self, owner, name, value):
+        self.undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def _wrap(self, orig, key, when=None):
+        def spy(*args, **kw):
+            if when is not None and not when(*args, **kw):
+                return orig(*args, **kw)
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.add(key, time.perf_counter() - t0)
+        return spy
 
     def __enter__(self):
-        def spy(vmap, queries, **kw):
-            self.n += int(queries.is_cuda)
-            return self.orig(vmap, queries, **kw)
-        vm.knn = spy
+        for owner, name, key, *when in self.targets:
+            self.patch(owner, name, self._wrap(getattr(owner, name), key,
+                                               *when))
         return self
 
     def __exit__(self, *exc):
-        vm.knn = self.orig
+        for owner, name, orig in reversed(self.undo):
+            setattr(owner, name, orig)
+
+
+def cuda_knn_calls() -> Spy:
+    """Counts calls of the plain kNN (`voxel_map.knn`) on CUDA tensors."""
+    return Spy((vm, "knn", "knn",
+                lambda vmap, queries, **kw: queries.is_cuda))
 
 
 def slice_phase(sim, cache_association: bool, n_warm: int = 60):
@@ -416,7 +468,7 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
     entry = "knn_plane_assoc" if cache_association else "knn_plane_rows"
     cfg = bench_lio_cfg(cache_association)
     plane_fit.reset_launches()
-    with CudaKnnCalls() as knn_calls:
+    with cuda_knn_calls() as knn_calls:
         pipe = LivoPipeline(cfg, device="cuda")
         meas = cut_all(pipe, sim)
         pipe.process_measurements(meas[:n_warm - 1])
@@ -785,7 +837,7 @@ def livo_phase(sim, render_ms: float, cfg: LivoConfig,
     The launch counters are set to 0 just before the run and read just
     after it."""
     plane_fit.reset_launches()
-    with CudaKnnCalls() as knn_calls:
+    with cuda_knn_calls() as knn_calls:
         vision = VisionModule(cfg, device="cuda")
         pipe = LivoPipeline(cfg, vision=vision, device="cuda")
         meas = cut_all(pipe, sim)
@@ -974,7 +1026,7 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
     with tempfile.TemporaryDirectory() as out_dir:
         plane_fit.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with CudaKnnCalls() as knn_calls, \
+        with cuda_knn_calls() as knn_calls, \
                 Capture("knn_plane_assoc", _is_ba) as cap_ba, \
                 Capture("knn_plane_assoc", _is_loop) as cap_loop:
             backend = MappingBackend(BackendConfig(feedback_to_filter=True),
@@ -1232,10 +1284,284 @@ def resume_phase(sim, cfg: LivoConfig, t_ckpt: float = 5.0,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: a recorded bag replayed through the real-data entry point
+# ---------------------------------------------------------------------------
+
+# The r3live profile of scripts/accuracy_gate.py (:111-119, own copy): the
+# published calibration of the R3Live sequences (configs/r3live.yaml),
+# images at image_scale 0.5 (1024 x 1280 -> 512 x 640) with the lens
+# distortion, the camera-IMU extrinsic and a 6 ms camera time offset.
+R3_TOPICS = ("/livox/lidar", "/livox/imu", "/camera/image_color")
+R3_INTR_FULL = (863.4241, 863.4171, 640.6808, 518.3392)
+R3_DIST = [-0.1080, 0.1050, -1.2872e-04, 5.7923e-05, -0.0222]
+R3_R_IC = [-0.00113207, -0.0158688, 0.999873,
+           -0.9999999, -0.000486594, -0.00113994,
+           0.000504622, -0.999874, -0.0158682]
+R3_T_IC = [0.050166, 0.0474116, -0.0312415]
+R3_SIZE = (512, 640)
+R3_TIME_OFFSET = 0.006
+# The gate's per-seed ATE bound, registration share and --quick track bar
+# (accuracy_gate.py:454-509).
+REPLAY_MAX_ATE = 0.08
+REPLAY_MIN_REGISTERED = 0.95
+REPLAY_MIN_TRACKS = 60.0
+
+
+class DeviceWorld(synthetic.SyntheticWorld):
+    """A world whose LiDAR rays are cast on `device` in float64
+    (`raycast_torch`), as the gate casts them on the accelerator when it
+    prebuilds its bags (accuracy_gate.py:66-77): the numpy raycast takes
+    about 0.2 s per 17600-ray sweep over this world's 142 rectangles."""
+
+    def __init__(self, rects, device):
+        super().__init__(rects)
+        self.device = device
+
+    def raycast(self, origins, dirs):
+        f = dict(dtype=torch.float64, device=self.device)
+        pts, hit = self.raycast_torch(torch.as_tensor(origins, **f),
+                                      torch.as_tensor(dirs, **f))
+        return pts.cpu().numpy(), hit.cpu().numpy(), None
+
+
+def r3live_bag(path: str, duration: float, seed: int, device="cuda",
+               images: bool = True):
+    """The gate's r3live bag (accuracy_gate.py:132-206): its world, the
+    `standard` trajectory, a Livox cone of 160 x 110 directions at 10 Hz,
+    IMU at 200 Hz and distorted 512 x 640 RGB8 images at 10 Hz, rays cast
+    on `device`, written uncompressed with tests/rosbag_writer.py.  With
+    `images=False` the images are 8 x 8 and black: they carry only their
+    stamps, which cut the sweeps.  Returns (sim, seconds to simulate,
+    seconds to write, message counts)."""
+    from tests import rosbag_writer as rbw
+
+    world = DeviceWorld(synthetic.make_room(
+        half=12.0, height=4.0, boxes=20, seed=7, clear_radius=3.6,
+        panels=36), device)
+    traj = synthetic.Trajectory(amp=(1.6, 1.6, 0.2), freq=(0.22, 0.15, 0.35),
+                                yaw_amp=0.7, yaw_freq=0.25, rp_amp=0.06,
+                                start_still=4.5)
+    t0 = time.perf_counter()
+    sim = synthetic.simulate(
+        duration=duration, sweep_rate=10.0, image_rate=10.0,
+        image_size=R3_SIZE if images else (0, 0),
+        camera=tuple(np.asarray(R3_INTR_FULL) * 0.5),
+        dist_coeffs=R3_DIST, r_ic=np.asarray(R3_R_IC).reshape(3, 3),
+        t_ic=np.asarray(R3_T_IC), cam_time_offset=R3_TIME_OFFSET, seed=seed,
+        traj=traj, world=world,
+        dirs_phase=synthetic.lidar_directions_livox(160, 110), device=device)
+    simulate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w = rbw.BagWriter(path)
+    for (t, acc, gyr) in sim.imu:
+        w.write_message(R3_TOPICS[1], "sensor_msgs/Imu", t,
+                        rbw.ser_imu(t, acc, gyr))
+    n_lidar = 0
+    for chunk in sim.lidar_chunks:
+        if chunk.shape[0] == 0:
+            continue
+        stamp = float(chunk[0, 3])
+        off_ns = np.round((chunk[:, 3] - stamp) * 1e9).astype(np.uint32)
+        n = chunk.shape[0]
+        w.write_message(R3_TOPICS[0], "livox_ros_driver/CustomMsg", stamp,
+                        rbw.ser_livox_custom(
+                            stamp, chunk[:, :3].astype(np.float32),
+                            np.zeros(n, np.uint8),
+                            (np.arange(n) % 6).astype(np.uint8), off_ns))
+        n_lidar += 1
+    for (t, img) in sim.images:
+        u8 = (np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+              if images else np.zeros((8, 8, 3), np.uint8))
+        w.write_message(R3_TOPICS[2], "sensor_msgs/Image", t,
+                        rbw.ser_image_rgb8(t, u8))
+    w.close()
+    counts = {"imu": len(sim.imu), "lidar": n_lidar,
+              "image": len(sim.images)}
+    return sim, simulate_s, time.perf_counter() - t0, counts
+
+
+def r3live_cfg() -> LivoConfig:
+    """configs/r3live.yaml (read as data) with the gate's shape overrides
+    (accuracy_gate.py:260-277) and retry_wider_neighborhood (:294)."""
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "configs", "r3live.yaml"))
+    sh = cfg.shapes
+    sh.max_sweep_points = 8192
+    sh.max_frame_points = 4096
+    sh.max_keypoints = 1024
+    sh.max_imu_samples = 48
+    sh.map_capacity = 1 << 17
+    sh.color_capacity = 1 << 17
+    sh.color_registry = 1 << 18
+    sh.max_render_points = 1 << 13
+    cfg.adaptive_keypoint_density = True
+    cfg.cache_association = True
+    cfg.wire_quantization = True
+    cfg.retry_wider_neighborhood = True
+    return cfg
+
+
+class HostTimes(Spy):
+    """Within the block, host milliseconds and calls per message class of
+    a bag replay: the bag read (each message pulled from the native
+    reader), the parsers, the Livox driver, the native wire pack and the
+    native host remap.  Each is timed by wrapping the module attribute the
+    replay calls; every call is passed on."""
+
+    def __init__(self):
+        super().__init__(
+            (drivers, "parse_imu", "parse_imu"),
+            (drivers, "parse_livox_custom", "parse_livox"),
+            (drivers, "parse_image", "parse_image"),
+            (drivers.CloudProcessing, "process_livox", "driver_livox"),
+            (native, "prepare_pack", "prepare_pack"),
+            (native, "remap_u8", "remap"))
+
+    def __enter__(self):
+        super().__enter__()
+        times, base = self, native.BagReader
+
+        class TimedReader(base):
+            def __iter__(self):
+                it = base.__iter__(self)
+                while True:
+                    t0 = time.perf_counter()
+                    msg = next(it, None)
+                    times.add("bag_read", time.perf_counter() - t0)
+                    if msg is None:
+                        return
+                    yield msg
+        self.patch(native, "BagReader", TimedReader)
+        return self
+
+
+def replay_phase(duration: float = 20.0, seed: int = 11,
+                 device="cuda") -> dict:
+    """The r3live-profile bag (`r3live_bag`) replayed through
+    `drivers.replay_bag` into LivoPipeline with a VisionModule on
+    `device`, with the launch counters set to 0 just before the replay and
+    read just after.  Prints the gate's record (frames, registered share,
+    rendered and gap-fill frames, ATE, mean LK-surviving tracks and the
+    30-track gate share after the 5th rendered frame), the replay's wall
+    time and sweeps+images/s, and the host ms per message class.  Fails
+    at an ATE of 0.08 m or more, a registered share below 0.95, mean
+    tracks below 60, `knn_plane_assoc` launches other than the IEKF
+    updates (one per frame, and one more for each frame whose weak solve
+    `retry_wider_neighborhood` re-runs over the widened neighbourhood),
+    any other entry or a plain kNN call on CUDA."""
+    import tempfile
+
+    cfg = r3live_cfg()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "r3live.bag")
+        sim, simulate_s, write_s, counts = r3live_bag(path, duration, seed,
+                                                      device)
+        bag_bytes = os.path.getsize(path)
+        vision = VisionModule(cfg, device=device)
+        pipe = LivoPipeline(cfg, vision=vision, device=device)
+        on_cuda = pipe.device.type == "cuda"
+        if on_cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        plane_fit.reset_launches()
+        with cuda_knn_calls() as knn_calls, HostTimes() as host, \
+                Spy((lio, "iekf_update", "iekf_update")) as updates:
+            t0 = time.perf_counter()
+            drivers.replay_bag(pipe, path, cfg, *R3_TOPICS,
+                               image_type=drivers.IMAGE_TYPE_RGB8)
+            if on_cuda:
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        launches = dict(plane_fit.launches)
+
+    recs = pipe.records
+    ts, ps, _ = pipe.trajectory()
+    ate = tum.ate_rmse(ts, ps, sim.gt_times, sim.gt_pos, align=True)
+    n_ok = sum(r.success for r in recs)
+    eng = [s[1] for s in vision.stats[5:]]
+    out = {"phase": "replay", "profile": "r3live", "duration_s": duration,
+           "seed": seed, "bag_messages": counts, "bag_bytes": bag_bytes,
+           "simulate_s": simulate_s, "bag_write_s": write_s,
+           "frames": len(recs), "registered": n_ok,
+           "registered_share": n_ok / max(len(recs), 1),
+           "rendered_frames": sum(r.rendering for r in recs),
+           "gap_fill_frames": sum(not r.rendering for r in recs),
+           "ate_m": ate,
+           "mean_tracks": float(np.mean(eng)) if eng else 0.0,
+           "track_gate_share": (float(np.mean([e >= 30 for e in eng]))
+                                if eng else 0.0),
+           "replay_wall_s": wall_s,
+           "sweeps_images_per_s": len(recs) / wall_s,
+           "host_ms": host.ms, "host_calls": host.calls,
+           "host_ms_per_call": {k: host.ms[k] / max(host.calls[k], 1)
+                                for k in host.ms},
+           "iekf_updates": updates.n,
+           "retried_frames": updates.n - len(recs),
+           "launches": launches, "plain_knn_calls_on_cuda": knn_calls.n,
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                 if on_cuda else None)}
+    emit(out)
+    bad = []
+    if not ate < REPLAY_MAX_ATE:
+        bad.append(f"ATE {ate} m")
+    if not out["registered_share"] >= REPLAY_MIN_REGISTERED:
+        bad.append(f"registered share {out['registered_share']}")
+    if not out["mean_tracks"] >= REPLAY_MIN_TRACKS:
+        bad.append(f"mean tracks {out['mean_tracks']}")
+    if not pipe.initialized or len(recs) < 5 * duration:
+        bad.append(f"{len(recs)} frames")
+    if not len(recs) <= updates.n <= 2 * len(recs):
+        bad.append(f"{updates.n} IEKF updates in {len(recs)} frames")
+    if on_cuda:
+        if launches["knn_plane_assoc"] != updates.n:
+            bad.append(f"knn_plane_assoc launched "
+                       f"{launches['knn_plane_assoc']} times in "
+                       f"{updates.n} IEKF updates")
+        others = {k: v for k, v in launches.items()
+                  if k != "knn_plane_assoc" and v}
+        if others or knn_calls.n:
+            bad.append(f"the replay launched {others} and called the plain "
+                       f"kNN {knn_calls.n} times on CUDA")
+    if bad:
+        raise AssertionError("replay phase: " + "; ".join(bad))
+    return out
+
+
+def demo_phase(device: str = "cuda", duration: float = 10.0) -> dict:
+    """`python -m sr_livo_tpu_torch.runtime.demo --vision` in a
+    subprocess: exit 0 and pose.txt written."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "sr_livo_tpu_torch.runtime.demo",
+               "--device", device, "--duration", f"{duration:g}",
+               "--vision", "--out", d]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        pose = os.path.join(d, "pose.txt")
+        pose_lines = (len(open(pose).read().splitlines())
+                      if os.path.exists(pose) else 0)
+    out = {"phase": "demo", "command": " ".join(cmd[1:]),
+           "returncode": proc.returncode, "seconds": seconds,
+           "pose_lines": pose_lines,
+           "report": [ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("[demo]")]}
+    emit(out)
+    if proc.returncode != 0 or pose_lines == 0:
+        raise AssertionError(f"demo phase: exit {proc.returncode}, "
+                             f"{pose_lines} pose lines\n"
+                             f"{proc.stderr[-3000:]}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["profile", "livo", "longrun",
-                                           "resume"],
+                                           "resume", "replay"],
                         help="run only the device and this phase")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
@@ -1247,6 +1573,11 @@ def main() -> int:
     emit({"phase": "device", "kind": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if only == "replay":
+        replay_phase()
+        demo_phase()
+        print(smi, flush=True)
+        return 0
     if only in ("livo", "longrun", "resume"):
         lsim, render_ms = livo_sim()
         if only == "livo":
@@ -1293,6 +1624,8 @@ def main() -> int:
     caps.clear()
     emit({"phase": "fused_vs_plain", "backend": backend})
     resume_phase(lsim, bench_livo_cfg())
+    replay = replay_phase()
+    demo_phase()
 
     summary = []
     for name, cache in (("knn_plane_assoc", True), ("knn_plane_rows", False),
@@ -1304,6 +1637,7 @@ def main() -> int:
             "launches": runs[cache]["launches"][name],
             "launches_livo": livo["launches"][name],
             "launches_backend": longrun["launches_backend"][name],
+            "launches_replay": replay["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],

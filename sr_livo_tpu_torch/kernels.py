@@ -1,11 +1,13 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries.
 
-A source under `csrc/` is compiled by `nvcc` for sm_90a into a shared
-library with a plain C interface and loaded with ctypes.  The build runs
-at first use, from the sources in the checkout, into `build/kernels/` at
-the repository root (listed in .gitignore); the library name carries a
-digest of the source and flags, so an edited source is rebuilt.  Nothing
-is built or imported when this module is imported.
+A CUDA source `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into a
+shared library with a plain C interface, in `build/kernels/`; a host C++
+source `csrc/<name>.cpp` (the ingest library) by `g++`, in
+`build/native/`.  Both are loaded with ctypes.  The build runs at first
+use, from the sources in the checkout, under `build/` at the repository
+root (listed in .gitignore); the library name carries a digest of the
+source and flags, so an edited source is rebuilt.  Nothing is built or
+imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -17,12 +19,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
+BUILD_DIR = BUILD_ROOT / "kernels"
+NATIVE_DIR = BUILD_ROOT / "native"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -39,34 +44,49 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _source(name: str) -> Tuple[Path, Path, List[str]]:
+    """(source, build directory, flags) of `csrc/<name>.cu` or `.cpp`."""
+    cu, cpp = CSRC / f"{name}.cu", CSRC / f"{name}.cpp"
+    if cu.exists():
+        return cu, BUILD_DIR, NVCC_FLAGS
+    if cpp.exists():
+        return cpp, NATIVE_DIR, GXX_FLAGS
+    raise FileNotFoundError(f"no source csrc/{name}.cu or csrc/{name}.cpp")
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, out_dir, flags = _source(name)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    return out_dir / f"lib{name}-{digest}.so"
 
 
 def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless it is built already; return the
-    nvcc/ptxas log ("" when nothing was built).  Raises with the log if
-    nvcc fails."""
+    """Compile `csrc/<name>.cu` (nvcc) or `csrc/<name>.cpp` (g++) unless it
+    is built already; return the compiler's log ("" when nothing was
+    built).  Raises with the log if the compiler fails."""
     out = library_path(name)
     if out.exists():
         return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, out_dir, flags = _source(name)
+    out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if src.suffix == ".cu":
+        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+    else:
+        cmd = ["g++", *flags, "-o", str(tmp), str(src), "-ldl"]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exited "
-                           f"{proc.returncode} on {name}.cu\n{proc.stdout}")
+        raise RuntimeError(f"library build failed: {cmd[0]} exited "
+                           f"{proc.returncode} on {src.name}\n{proc.stdout}")
     os.replace(tmp, out)
     return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built at first use."""
+    """The loaded library of `csrc/<name>.cu` or `.cpp`, built at first
+    use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

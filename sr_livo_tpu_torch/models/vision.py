@@ -23,7 +23,7 @@ from sr_livo_tpu_torch.config import LivoConfig
 from sr_livo_tpu_torch.models import camera as cam_mod
 from sr_livo_tpu_torch.ops import color_map as cm
 from sr_livo_tpu_torch.ops import image_ops, lk, ransac
-from sr_livo_tpu_torch.runtime.remap import remap_u8
+from sr_livo_tpu_torch.runtime import native
 from sr_livo_tpu_torch.utils.device import resolve_device
 
 # Hypotheses per frame of the two RANSAC gates (the JAX package's
@@ -204,7 +204,7 @@ class VisionModule:
             img_in = np.clip(np.round(img), 0, 255).astype(np.uint8)
         if (self.host_map is not None
                 and img_in.shape[:2] == (self.orig_rows, self.orig_cols)):
-            return remap_u8(np.ascontiguousarray(img_in), self.host_map), True
+            return native.remap_u8(img_in, self.host_map), True
         if img_in.shape[:2] != (self.rows, self.cols):
             ys = np.clip(np.round(np.linspace(0, img_in.shape[0] - 1,
                                               self.rows))

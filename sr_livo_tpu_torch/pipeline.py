@@ -13,6 +13,7 @@ Reference topology: lioOptimization::run()/process()
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import queue
 import threading
@@ -427,6 +428,23 @@ class LivoPipeline:
         ps = np.stack([r.position for r in recs]) if recs else np.zeros((0, 3))
         qs = np.stack([r.quat_wxyz for r in recs]) if recs else np.zeros((0, 4))
         return ts, ps, qs
+
+    def record_parameters(self, out_dir: Optional[str] = None):
+        """parameter_list.txt dump (recordParameters, parameters.cpp:73-164),
+        with the JAX package's sections and lines."""
+        out_dir = out_dir or self.cfg.output_path
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "parameter_list.txt"), "w") as f:
+            for name, dc in (("odometry_options", self.cfg.odometry_options),
+                             ("icp_options", self.cfg.icp),
+                             ("map_options", self.cfg.map_options),
+                             ("imu_parameter", self.cfg.imu_options),
+                             ("lidar_parameter", self.cfg.lidar_options),
+                             ("shapes", self.cfg.shapes)):
+                f.write(f"[{name}]\n")
+                for fld in dataclasses.fields(dc):
+                    f.write(f"{fld.name}: {getattr(dc, fld.name)}\n")
+                f.write("\n")
 
     def write_outputs(self, out_dir: Optional[str] = None):
         """pose.txt / velocity.txt / bias.txt (recordSinglePose,

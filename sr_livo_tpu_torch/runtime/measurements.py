@@ -1,7 +1,8 @@
 """Host-side sweep reconstruction: the measurement cutter.
 
-An own copy of `sr_livo_tpu/runtime/measurements.py` on its numpy path
-(the native C++ wire packer of the JAX package is not used here).
+An own copy of `sr_livo_tpu/runtime/measurements.py`.  The wire pack of
+the main path is the native C++ `runtime.native.prepare_pack`, as in the
+JAX package; `prepare_sweep` + `pack_sweep` are its plain version.
 
 Port of the reference scheduler getMeasurements()
 (src/lioOptimization.cpp:666-784): cuts the continuous
@@ -21,6 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from sr_livo_tpu_torch.config import LivoConfig
+from sr_livo_tpu_torch.runtime import native
 
 
 @dataclass
@@ -307,9 +309,17 @@ def pack_sweep(prep: PreparedSweep, duration: float) -> PackedSweepWire:
     # Robust scale: one spurious long-range return must not coarsen the
     # quanta for the whole sweep, so use the 99.9th percentile of |xyz|
     # and saturate the (rare) points beyond it at the int16 edge.
+    # The percentile interpolates in float64 exactly as the native
+    # `livo_prepare_pack` does (np.percentile of float32 values rounds to
+    # float32 and would move the scale by an ulp).
     if n:
-        abs_xyz = np.abs(prep.raw_pts[:n])
-        max_abs = float(np.percentile(abs_xyz, 99.9))
+        abs_xyz = np.abs(prep.raw_pts[:n]).ravel()
+        pos = 0.999 * (abs_xyz.size - 1)
+        lo = int(pos)
+        part = np.partition(abs_xyz, lo)
+        v_lo = float(part[lo])
+        v_hi = float(part[lo + 1:].min()) if lo + 1 < part.size else v_lo
+        max_abs = v_lo + (v_hi - v_lo) * (pos - lo)
         if max_abs <= 0.0:
             max_abs = float(np.max(abs_xyz))
     else:
@@ -326,10 +336,20 @@ def pack_sweep(prep: PreparedSweep, duration: float) -> PackedSweepWire:
 def prepare_sweep_wire(meas: Measurement, current_time: float,
                        cfg: LivoConfig
                        ) -> Tuple[np.ndarray, PackedSweepWire, float, int]:
-    """Wire-mode host prep: (imu_pack (M, 9) f32, wire, new_current_time,
-    n_points), through `prepare_sweep` + `pack_sweep` (numpy)."""
-    imu_pack, new_time, _n_imu = _prepare_imu_pack(meas, current_time,
-                                                   cfg.shapes)
-    prep = prepare_sweep(meas, current_time, cfg)
-    wire = pack_sweep(prep, meas.duration)
-    return imu_pack, wire, new_time, prep.n_points
+    """Wire-mode host prep in one pass: (imu_pack (M, 9) f32, wire,
+    new_current_time, n_points).
+
+    The point side (window + stride decimation + robust scale + int16
+    quantization) runs in the native C++ `prepare_pack`, which releases
+    the GIL and skips the padded float32 intermediate `prepare_sweep`
+    builds; `prepare_sweep` + `pack_sweep` compute the same wire in
+    numpy (its plain version, for the tests)."""
+    sh = cfg.shapes
+    imu_pack, new_time, _n_imu = _prepare_imu_pack(meas, current_time, sh)
+    duration = max(float(meas.duration), 1e-6)
+    pts_q, scale, k = native.prepare_pack(
+        meas.points, meas.time_sweep_begin, meas.time_image, duration,
+        sh.max_sweep_points)
+    return (imu_pack,
+            PackedSweepWire(pts_q=pts_q, scale=scale, duration=duration),
+            new_time, k)

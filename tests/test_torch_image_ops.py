@@ -7,8 +7,9 @@ Scharr derivatives, bilinear sampling and remap agree within 1e-4 on the
 the border and pyramid levels smaller than the window.  CLAHE bins by
 truncation, so a value computed in a different float order can land in the
 neighbouring bin: CLAHE and the YCrCb equalization agree within 1e-3 on at
-least 99.9% of the pixels.  The port's host remap stays within one grey
-level of the JAX package's `native.remap_u8`.
+least 99.9% of the pixels.  The port's host remap (its native C++ and its
+numpy plain version) equals the JAX package's `native.remap_u8` bit for
+bit.
 """
 import dataclasses
 
@@ -127,8 +128,8 @@ def test_equalize_color_ycrcb():
 
 
 def test_host_remap_matches_native():
-    """The port's numpy remap against the JAX package's host remap (native
-    C++ where it builds, else its numpy fallback)."""
+    """The port's numpy remap (the plain version of its native one)
+    against the JAX package's native host remap, bit for bit."""
     rng = np.random.RandomState(3)
     h, w = 48, 64
     img = rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
@@ -136,10 +137,7 @@ def test_host_remap_matches_native():
     m = np.stack([xs * 0.9 + 2.0 * np.sin(ys / 7.0) + 1.0,
                   ys * 0.95 + 1.5 * np.cos(xs / 9.0)], -1).astype(np.float32)
     m[0, :4] = [[-2.0, -2.0], [70.0, 50.0], [63.0, 47.0], [62.9, 46.9]]
-    got = remap_u8(img, m).astype(np.int32)
-    want = native.remap_u8(img, m).astype(np.int32)
-    assert got.shape == want.shape
-    assert np.max(np.abs(got - want)) <= 1
+    np.testing.assert_array_equal(remap_u8(img, m), native.remap_u8(img, m))
     np.testing.assert_array_equal(remap_u8(img[..., 0], m).shape, (h, w))
 
 
@@ -175,7 +173,7 @@ def test_vision_preprocess_matches_jax():
     t_u8, t_re = tv._host_prepare(full)
     j_u8, j_re = jv._host_prepare(full)
     assert t_re and j_re
-    assert np.max(np.abs(t_u8.astype(int) - j_u8.astype(int))) <= 1
+    np.testing.assert_array_equal(t_u8, j_u8)
     odd = _image(30, 50)                      # resized on the host
     np.testing.assert_array_equal(tv._host_prepare(odd)[0],
                                   jv._host_prepare(odd)[0])

@@ -1,6 +1,7 @@
 """The port stands alone: `sr_livo_tpu_torch` and `chip_smoke.py` import
-neither JAX nor anything of the JAX package, and `chip_smoke.py` fails
-(printing no result) where there is no GPU or no port beside it."""
+neither JAX nor anything of the JAX package, nor use the JAX package's
+native library or build anything under `native/`, and `chip_smoke.py`
+fails (printing no result) where there is no GPU or no port beside it."""
 import os
 import pkgutil
 import re
@@ -28,11 +29,19 @@ def _modules():
         sr_livo_tpu_torch.__path__, "sr_livo_tpu_torch."))
 
 
-def _sources():
+def _sources(suffixes=(".py",)):
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PKG_DIR):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+        out += [os.path.join(root, f) for f in files if f.endswith(suffixes)]
     return sorted(out)
+
+
+# The JAX package's native library: its source and the library its loader
+# builds beside it (`native/liblivo_native.so`), named as a path or joined.
+NATIVE_DIR_USE = [
+    re.compile(r"(?<![\w/])native[/\\]+(lib)?livo_native"),
+    re.compile(r"[\"']native[\"']\s*[,/]\s*[\"'](lib)?livo_native"),
+]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -64,6 +73,26 @@ def test_source_has_no_jax_import(path):
     for pat in FORBIDDEN:
         hit = pat.search(src)
         assert hit is None, f"{path}: {hit.group(0).strip()!r}"
+
+
+@pytest.mark.parametrize("path", _sources((".py", ".cpp", ".cu", ".cuh")),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_does_not_use_the_jax_native_library(path):
+    """No port source names `native/livo_native` or a path under the
+    repository's `native/`; the port builds its own copy into
+    `build/native/`."""
+    with open(path) as f:
+        src = f.read()
+    for pat in NATIVE_DIR_USE:
+        hit = pat.search(src)
+        assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_native_build_dir_is_under_build():
+    from sr_livo_tpu_torch import kernels
+    for d in (kernels.BUILD_DIR, kernels.NATIVE_DIR):
+        assert os.path.relpath(d, REPO).split(os.sep)[0] == "build"
+    assert kernels.NATIVE_DIR.name == "native"
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -77,13 +77,19 @@ def test_prepare_and_pack_sweep_byte_identical(measurements):
             jp.new_current_time, jp.n_points, jp.n_imu)
         decimated += int(a.points.shape[0] > tcfg.shapes.max_sweep_points)
 
+        # the main path's native pack against the JAX package's, and
+        # against the port's plain prepare_sweep + pack_sweep
         t_pack, t_wire, t_time, t_n = tmeas.prepare_sweep_wire(a, cur_t,
                                                                tcfg)
-        j_wire = jmeas.pack_sweep(jp, b.duration)
-        assert t_wire.pts_q.tobytes() == j_wire.pts_q.tobytes()
-        assert (t_wire.scale, t_wire.duration) == (j_wire.scale,
-                                                   j_wire.duration)
-        assert (t_time, t_n) == (jp.new_current_time, jp.n_points)
+        j_pack, j_wire, j_time, j_n = jmeas.prepare_sweep_wire(b, cur_j,
+                                                               jcfg)
+        p_wire = tmeas.pack_sweep(tp, a.duration)
+        for w in (j_wire, p_wire):
+            assert t_wire.pts_q.tobytes() == w.pts_q.tobytes()
+            assert (t_wire.scale, t_wire.duration) == (w.scale, w.duration)
+        assert t_pack.tobytes() == j_pack.tobytes()
+        assert (t_time, t_n) == (j_time, j_n) == (jp.new_current_time,
+                                                  jp.n_points)
         np.testing.assert_array_equal(t_pack[:, 0], jp.imu_t)
         cur_t, cur_j = tp.new_current_time, jp.new_current_time
     assert decimated > 0

@@ -8,6 +8,15 @@ registrations) and stay within 2 mm of the JAX trajectory at every frame
 through ~70 closed-loop sweeps).  The port's own simulator must produce
 the JAX simulator's streams byte for byte, the configuration must load
 the same, and `convert` must round-trip filter state.
+
+On every frame the port's LIO step, given the JAX run's own state, map
+and sweep (tests/lockstep.py), must take the same number of IEKF
+iterations on the same number of residuals, with the same success flag,
+and solve to within 1e-6 m of the JAX step.  The two closed-loop runs
+cannot be held to that: round-off the loop carries on moves a map point
+into another voxel at frame 3, and the residual counts then differ on 11
+frames and the iterations on frame 64, where the two packages' first
+updates fall on either side of the 1e-3 m convergence threshold.
 """
 import dataclasses
 import os
@@ -26,6 +35,7 @@ from sr_livo_tpu_torch.pipeline import LivoPipeline as TPipe
 from sr_livo_tpu_torch.pipeline import run_streams as trun
 from sr_livo_tpu_torch.runtime import synthetic as tsyn
 from sr_livo_tpu_torch.runtime import tum
+from tests.lockstep import Lockstep
 from tests.test_pipeline_lio import _small_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,11 +66,19 @@ def sims():
 
 
 @pytest.fixture(scope="module")
-def runs(sims):
+def lockstep_runs(sims):
+    """Both closed-loop runs, and the port's step on the JAX run's inputs
+    at every frame."""
     jsim, tsim = sims
-    jp = jrun(JPipe(_small_cfg()), jsim)
+    with Lockstep(_port_cfg()) as lockstep:
+        jp = jrun(JPipe(_small_cfg()), jsim)
     tp = trun(TPipe(_port_cfg(), device="cpu"), tsim)
-    return jp, tp
+    return jp, tp, lockstep.frames
+
+
+@pytest.fixture(scope="module")
+def runs(lockstep_runs):
+    return lockstep_runs[:2]
 
 
 def test_simulator_streams_byte_identical(sims):
@@ -89,9 +107,9 @@ def test_config_matches_jax(name):
     assert t.icp == t.odometry_options.optimize_options
 
 
-def test_pipeline_tracks_like_jax(sims, runs):
+def test_pipeline_tracks_like_jax(sims, lockstep_runs):
     jsim, tsim = sims
-    jp, tp = runs
+    jp, tp, frames = lockstep_runs
     assert tp.initialized and len(tp.records) > 40
     assert sum(1 for r in tp.records if not r.success) <= 2
 
@@ -104,8 +122,12 @@ def test_pipeline_tracks_like_jax(sims, runs):
     gap = np.linalg.norm(tpos - jpos, axis=1).max()
     assert gap < MAX_GAP_M, f"max position gap to JAX {gap:.2e} m"
     assert np.abs(tq - jq).max() < 1e-3
-    assert [r.iterations for r in tp.records] == [r.iterations
-                                                  for r in jp.records]
+    assert len(frames) == len(jp.records)
+    # (success, residual count, iterations) on the same inputs
+    assert [f.port for f in frames] == [f.jax for f in frames]
+    assert [f.port_updates for f in frames] == [f.jax_updates
+                                                for f in frames]
+    assert max(f.position_gap for f in frames) < 1e-6
     assert [r.success for r in tp.records] == [r.success for r in jp.records]
 
 

@@ -2,10 +2,13 @@
 counterpart on the inputs of the `test_torch_*` files, with the largest
 absolute difference and whether the outputs are bit-exact.
 
-    JAX_PLATFORMS=cpu python -m tests.torch_parity_report
+    JAX_PLATFORMS=cpu python -m tests.torch_parity_report [section ...]
 
 Runs on the CPU (the port's plain path) in about eight minutes; the tests
 hold the bounds, this script reports the measured values for PERF.md.
+Sections (all by default): lie, eskf, frame, voxel_map, host, plane,
+knn_plane, lio, odometry, pipeline, image, ransac, color_map, camera,
+vision, long_run, ingest, retry.
 """
 import tests.conftest  # noqa: F401  (JAX on the CPU before anything runs)
 
@@ -20,6 +23,7 @@ from tests import test_torch_backend as BE
 from tests import test_torch_camera as C
 from tests import test_torch_checkpoint as CK
 from tests import test_torch_color_map as CM
+from tests import test_torch_drivers as DR
 from tests import test_torch_eskf as E
 from tests import test_torch_eviction as EV
 from tests import test_torch_frame as F
@@ -28,16 +32,20 @@ from tests import test_torch_lie as L
 from tests import test_torch_lio as I
 from tests import test_torch_loop_closure as LC
 from tests import test_torch_measurements as M
+from tests import test_torch_native as N
 from tests import test_torch_odometry as O
 from tests import test_torch_pipeline as P
 from tests import test_torch_plane_fit as PF
 from tests import test_torch_pose_graph as PG
 from tests import test_torch_ransac as R
+from tests import test_torch_replay as RP
+from tests import test_torch_replay_r3live as RR
 from tests import test_torch_streaming as ST
 from tests import test_torch_vision as VI
 from tests import test_torch_voxel_map as V
 
 ROWS = []
+REPLAY_S = 20.0     # the length of chip_smoke.py's phase `replay`
 
 
 def row(name, pairs):
@@ -305,11 +313,13 @@ def host_rows():
         jp = jmeas.prepare_sweep(b, cur, jcfg)
         prep += [(tp.raw_pts, jp.raw_pts), (tp.t_rel, jp.t_rel),
                  (tp.imu_acc, jp.imu_acc), (tp.imu_dt, jp.imu_dt)]
-        wire.append((tmeas.prepare_sweep_wire(a, cur, tcfg)[1].pts_q,
-                     jmeas.pack_sweep(jp, b.duration).pts_q))
+        tw = tmeas.prepare_sweep_wire(a, cur, tcfg)[1]
+        jw = jmeas.prepare_sweep_wire(b, cur, jcfg)[1]
+        wire += [(tw.pts_q, jw.pts_q), (tw.scale, jw.scale)]
         cur = tp.new_current_time
     row("measurements.prepare_sweep", prep)
-    row("measurements.prepare_sweep_wire (int16 wire)", wire)
+    row("measurements.prepare_sweep_wire (native pack vs JAX native pack; "
+        "int16 wire, scale)", wire)
     pts = M.RNG.randn(300, 12, 3) * [1.0, 0.6, 0.02]
     c = pts - pts.mean(1, keepdims=True)
     a = np.einsum("qmi,qmj->qij", c, c).astype(np.float32)
@@ -351,8 +361,7 @@ def pipeline_rows():
         + [(np.stack([a for _, a, _ in tsim.imu]),
             np.stack([a for _, a, _ in jsim.imu])),
            (tsim.gt_pos, jsim.gt_pos)])
-    jp = P.jrun(P.JPipe(P._small_cfg()), jsim)
-    tp = P.trun(P.TPipe(P._port_cfg(), device="cpu"), tsim)
+    jp, tp, frames = P.lockstep_runs.__wrapped__((jsim, tsim))
     tt, tpos, _ = tp.trajectory()
     jt, jpos, _ = jp.trajectory()
     ate_t = P.tum.ate_rmse(tt, tpos, tsim.gt_times, tsim.gt_pos, align=True)
@@ -360,9 +369,57 @@ def pipeline_rows():
     gap = np.linalg.norm(tpos - jpos, axis=1).max()
     n_res = sum(a.num_residuals != b.num_residuals
                 for a, b in zip(tp.records, jp.records))
+    n_it = sum(a.iterations != b.iterations
+               for a, b in zip(tp.records, jp.records))
+    gaps = np.abs(tpos - jpos).max(axis=1)
+    first = int(np.argmax(gaps > 1e-6))
     row(f"pipeline.LivoPipeline trajectory, {len(tt)} frames (max position "
-        f"gap {gap:.3e} m; ATE port {ate_t:.6f} m, JAX {ate_j:.6f} m; "
-        f"residual counts differ on {n_res} frames)", [(tpos, jpos)])
+        f"gap {gap:.3e} m, first over 1e-6 m at frame {first}: "
+        f"{gaps[first]:.1e} m; ATE port {ate_t:.6f} m, JAX {ate_j:.6f} m; "
+        f"residual counts differ on {n_res} frames, iterations on {n_it})",
+        [(tpos, jpos)])
+    lockstep_row("pipeline", frames)
+
+
+def lockstep_row(name, frames):
+    """The port's step on the JAX run's inputs at every frame
+    (tests/lockstep.py): positions against the JAX step's."""
+    same = sum(f.port == f.jax and f.port_updates == f.jax_updates
+               for f in frames)
+    row(f"odometry.LioEngine.step in lockstep with the JAX {name} run "
+        f"(success, residual count, iterations and IEKF updates equal on "
+        f"{same} of {len(frames)} frames; velocities within "
+        f"{max(f.velocity_gap for f in frames):.1e} m/s; positions)",
+        [([f.position_gap for f in frames], np.zeros(len(frames)))])
+
+
+def retry_rows():
+    """The r3live profile's bag without images (test_torch_replay_r3live),
+    at the length of chip_smoke.py's phase `replay`: which frames each
+    package re-runs over the widened neighbourhood."""
+    d = _TmpDirs().mktemp("r3live")
+    sim, jp, tp, frames, steps = RR.replay_both(str(d / "r3live.bag"),
+                                                REPLAY_S)
+    lockstep_row(f"{REPLAY_S:g} s r3live replay", frames)
+    tt, tpos, _ = tp.trajectory()
+    jt, jpos, _ = jp.trajectory()
+    ate = [RP.tum.ate_rmse(t, p, sim.gt_times, sim.gt_pos, align=True)
+           for t, p in ((tt, tpos), (jt, jpos))]
+    retried = (sum(len(u) == 2 for u in steps),
+               sum(len(f.jax_updates) == 2 for f in frames))
+    same = sum(len(u) == len(f.jax_updates) for u, f in zip(steps, frames))
+    n_res = [r.num_residuals for r in tp.records]
+    n_diff = sum(a != b.num_residuals for a, b in zip(n_res, jp.records))
+    worst = int(np.argmax(np.linalg.norm(tpos - jpos, axis=1)))
+    row(f"drivers.replay_bag, {REPLAY_S:g} s r3live-profile Livox bag, "
+        f"retry_wider_neighborhood ({len(tt)} / {len(jt)} frames, "
+        f"{sum(r.success for r in tp.records)} / "
+        f"{sum(r.success for r in jp.records)} registered, {retried[0]} / "
+        f"{retried[1]} re-run, the same on {same} frames; residual counts "
+        f"differ on {n_diff} frames; largest gap at frame {worst}, "
+        f"{tt[worst]:.2f} s, on {n_res[worst]} residuals; ATE port "
+        f"{ate[0]:.6f} m, JAX "
+        f"{ate[1]:.6f} m; positions)", [(tpos, jpos)])
 
 
 def image_rows():
@@ -412,8 +469,11 @@ def image_rows():
     m = np.stack(np.meshgrid(np.arange(64.0) * 0.97 + 0.6,
                              np.arange(48.0) * 0.95 + 0.4), -1).astype(
         np.float32)
-    row("runtime.remap.remap_u8 vs native.remap_u8 (grey levels)",
-        [(remap_u8(img, m), native.remap_u8(img, m))])
+    from sr_livo_tpu_torch.runtime import native as tnative
+    row("native.remap_u8 vs JAX native.remap_u8 and vs runtime.remap."
+        "remap_u8 (grey levels)",
+        [(tnative.remap_u8(img, m), native.remap_u8(img, m)),
+         (tnative.remap_u8(img, m), remap_u8(img, m))])
     prev, cur = LK._frames()
     (jpyr, jdx, jdy), (jcur, _, _), (tpyr, tdx, tdy), (tcur, _, _) = \
         LK._pyramids(prev, cur)
@@ -547,6 +607,89 @@ def vision_rows():
          for t in (0.3, 6.1)])
 
 
+def ingest_rows():
+    """The native ingest entries against the JAX package's native ones and
+    against the port's plain versions, on the test_torch_native inputs;
+    the vendor goldens; the 6 s bag replay against the JAX replay."""
+    from sr_livo_tpu.runtime import native as jn
+    from sr_livo_tpu_torch.runtime import native as tn
+    from sr_livo_tpu_torch.runtime.remap import remap_u8
+
+    def both(name, fn, args, kw=None):
+        kw = kw or {}
+        t = fn(*args, **kw)
+        pairs = [(t, getattr(jn, name)(*args, **kw)),
+                 (t, getattr(tn, f"{name}_numpy")(*args, **kw))]
+        return [(a, b) for x, y in pairs
+                for a, b in (zip(x, y) if isinstance(x, tuple) else [(x, y)])]
+
+    pairs = []
+    for case, (t_dtype, t_values, scale, t_base) in sorted(
+            N.DECODE_CASES.items()):
+        rng = np.random.RandomState(1 + t_dtype)
+        args = (N._cloud(rng, 500, 24, t_dtype, t_values), 500, 24, 0, 4, 8,
+                12, t_dtype, scale)
+        pairs += both("decode_xyzt", tn.decode_xyzt, args,
+                      {"t_base": t_base})
+    row("native.decode_xyzt (no time, f32 s and ms, f64 Robosense epoch "
+        "stamps, u32 ns; vs JAX native and plain)", pairs)
+    data = N._cloud(np.random.RandomState(7), 300, 24, 0, None)
+    row("native.decode_ring (u8, u16; vs JAX native and plain)",
+        both("decode_ring", tn.decode_ring, (data, 300, 24, 21, 1))
+        + both("decode_ring", tn.decode_ring, (data, 300, 24, 22, 2)))
+    pairs = []
+    for given in (True, False):
+        for fnum in (1, 3):
+            xyzt, ring = N._spinning_input(np.random.RandomState(11 + fnum),
+                                           given)
+            for header, last in ((100.0, -1.0), (100.05, 100.098)):
+                pairs += both("process_spinning", tn.process_spinning,
+                              (xyzt, ring, 16, 10, fnum, 1.0, header, given,
+                               last))
+    row("native.process_spinning (given time and yaw synthesis, filter 1 "
+        "and 3, gated; vs JAX native and plain)", pairs)
+    pairs = []
+    for fnum in (1, 2):
+        pairs += both("process_livox", tn.process_livox, N._livox_args(fnum))
+    row("native.process_livox (filter 1 and 2; vs JAX native and plain)",
+        pairs)
+    img, m = N._remap_args(3)
+    t = tn.remap_u8(img, m)
+    row("native.remap_u8 (96 x 128 -> 60 x 80, RGB; vs JAX native and "
+        "plain)", [(t, jn.remap_u8(img, m)), (t, remap_u8(img, m))])
+    pairs = []
+    for n, max_points in N.PACK_CASES.values():
+        pts, plain = N._pack_case(n, max_points)
+        got = tn.prepare_pack(pts, 0.0, 0.1, 0.1, max_points)
+        pairs += list(zip(got, jn.prepare_pack(pts, 0.0, 0.1, 0.1,
+                                               max_points)))
+        pairs += list(zip(got, plain))
+    row("native.prepare_pack (empty, normal, overflow, one slot; int16 "
+        "wire, scale, count; vs JAX native and prepare_sweep + pack_sweep)",
+        pairs)
+    gold = np.load(DR.FIX)
+    pairs = []
+    for vendor in sorted(DR.GOLDEN_CFGS):
+        cp = DR.drivers.CloudProcessing(DR.GOLDEN_CFGS[vendor]())
+        payload = gold[f"{vendor}_payload"].tobytes()
+        out = (cp.process_livox(DR.drivers.parse_livox_custom(payload))
+               if vendor == "livox" else
+               cp.process_cloud(DR.drivers.parse_pointcloud2(payload)))
+        pairs += [(out, gold[f"{vendor}_expected"]),
+                  (cp.last_end_time, gold[f"{vendor}_last_end"])]
+    row("drivers.CloudProcessing vs the frozen vendor goldens (Livox, "
+        "Ouster, Velodyne, Robosense; points, last_end_time)", pairs)
+    sim, jp, tp = RP.replays.__wrapped__(_TmpDirs())
+    tt, tpos, _ = tp.trajectory()
+    jt, jpos, _ = jp.trajectory()
+    ate = RP.tum.ate_rmse(tt, tpos, sim.gt_times, sim.gt_pos,
+                          align=True)
+    row(f"drivers.replay_bag, 6 s Velodyne bag ({len(tt)} / {len(jt)} "
+        f"frames, {sum(r.success for r in tp.records)} / "
+        f"{sum(r.success for r in jp.records)} registered, ATE port "
+        f"{ate:.6f} m; positions)", [(tpos, jpos)])
+
+
 class _TmpDirs:
     """Stands in for pytest's tmp_path_factory."""
 
@@ -670,12 +813,19 @@ def long_run_rows():
         [(resumed.trajectory()[1], base.trajectory()[1])])
 
 
-def main():
-    for fn in (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
-               plane_rows, knn_plane_rows, lio_rows, odometry_rows,
-               pipeline_rows, image_rows, ransac_rows, color_map_rows,
-               camera_rows, vision_rows, long_run_rows):
-        fn()
+SECTIONS = (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
+            plane_rows, knn_plane_rows, lio_rows, odometry_rows,
+            pipeline_rows, image_rows, ransac_rows, color_map_rows,
+            camera_rows, vision_rows, long_run_rows, ingest_rows,
+            retry_rows)
+
+
+def main(argv):
+    """Every section, or those named on the command line (`ingest`,
+    `pipeline`, ...: the function names without `_rows`)."""
+    names = {fn.__name__[:-len("_rows")]: fn for fn in SECTIONS}
+    for name in argv or names:
+        names[name]()
     print("| function | max abs error | bit-exact |")
     print("| --- | --- | --- |")
     for name, err, exact in ROWS:
@@ -683,4 +833,5 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    main(sys.argv[1:])
