@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only longrun   # device + longrun (+ its shapes)
     python3 chip_smoke.py --only resume    # device + resume phases only
     python3 chip_smoke.py --only replay    # device + replay + demo phases
+    python3 chip_smoke.py --only sharded   # device + sharded phase
 
 Phases, each printing one JSON line:
 
@@ -34,6 +35,21 @@ Phases, each printing one JSON line:
   6. profile — torch.profiler over 20 sweeps of the default mode after a
      warm-up: the 10 device ops that took most time and the device's
      busy share of the window;
+  6b. sharded — the map-sharded engine (parallel.sharded_lio) on the
+     slice's run: the single-device pipeline's sweeps, each as
+     `LioEngine.step` got it, replayed into `ShardedLioEngine` (a) as a
+     world of one over NCCL (the bars of tests/test_sharded_lio.py
+     against the single-device records, success on every frame, the
+     owned map size, no routing overflow, ATE < 0.05 m,
+     `knn_plane_assoc` once per IEKF update and no plain kNN on the
+     card), then `compact` and one sharded windowed-BA solve (8
+     keyframes x 512 points of the run, 3 iterations: no overflow, one
+     launch per iteration); (b) as two ranks sharing the card over gloo,
+     in two processes of this script (the same checks, and every rank's
+     replicated outputs the same bits); (c) `knn_plane_assoc` against
+     its plain version and timed at the two shard shapes: the IEKF's
+     K4 x 20 on rank 0's local table (captured in (b)) and the BA's
+     W x 20 (captured in (a); a2d there on rows not flat to rounding);
   7. livo    — the full LIVO loop (LivoPipeline with a VisionModule) at
      bench.py's configuration (512 x 640 images rendered on the card, 300
      tracks, the default colored-map shapes) on a 20 s run: warm-up as in
@@ -90,7 +106,8 @@ one eager call of the kernel (`call_ms`) and of the plain version
 take for the same work (`bound_ms`, by bytes or operations, counted from
 this run's inputs; `launches`, `launches_livo`, `launches_backend`,
 `launches_replay`: the launches in the slice and livo runs, the
-backend's own in the longrun run, and those of the bag replay).  Then it
+backend's own in the longrun run, and those of the bag replay;
+`launches_sharded` and `sharded_shapes`: phase `sharded`'s).  Then it
 prints the `{"kernels": [...]}` summary, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase raises and the script
 exits non-zero without that last line.
@@ -101,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import hashlib
 import json
 import math
 import os
@@ -110,15 +128,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from sr_livo_tpu_torch import kernels  # noqa: E402
 from sr_livo_tpu_torch.config import LivoConfig, load_config  # noqa: E402
+from sr_livo_tpu_torch.models import eskf as eskf_mod  # noqa: E402
 from sr_livo_tpu_torch.models import lio  # noqa: E402
 from sr_livo_tpu_torch.models.vision import VisionModule  # noqa: E402
 from sr_livo_tpu_torch.ops import plane_fit  # noqa: E402
 from sr_livo_tpu_torch.ops import voxel_map as vm  # noqa: E402
+from sr_livo_tpu_torch.parallel import ba as pba  # noqa: E402
+from sr_livo_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from sr_livo_tpu_torch.parallel import pose_graph, sharded_lio  # noqa: E402
 from sr_livo_tpu_torch.pipeline import LivoPipeline  # noqa: E402
 from sr_livo_tpu_torch.runtime import drivers, native  # noqa: E402
 from sr_livo_tpu_torch.runtime import synthetic, tum  # noqa: E402
@@ -1558,12 +1581,397 @@ def demo_phase(device: str = "cuda", duration: float = 10.0) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6b: the map-sharded engine
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 2
+BA_KEYFRAMES, BA_POINTS, BA_ITERS, BA_STRIDE = 8, 512, 3, 10
+# tests/test_sharded_lio.py:104-107: the sharded engine against the
+# single-device one
+SHARDED_POS = 2e-3
+SHARDED_QUAT = 1e-4
+
+
+def record_single_run(sim, cfg: LivoConfig) -> tuple:
+    """The single-device LIO pipeline over the run, recording what each
+    `LioEngine.step` got (the first state, every sweep with its frame id
+    and gyro rate) and its host seconds, synchronised on both sides.
+    Returns (pipeline, log)."""
+    pipe = LivoPipeline(cfg, device="cuda")
+    meas = cut_all(pipe, sim)
+    log = {"first_state": None, "sweeps": [], "frame_ids": [], "gyr": [],
+           "seconds": []}
+    orig = pipe.engine.step
+
+    def step(state, vmap, sweep, frame_id, prev_poses=None, gyr_rate=0.0,
+             timers=None):
+        if log["first_state"] is None:
+            log["first_state"] = eskf_mod.map_state(torch.clone, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(state, vmap, sweep, frame_id, prev_poses=prev_poses,
+                   gyr_rate=gyr_rate, timers=timers)
+        torch.cuda.synchronize()
+        log["seconds"].append(time.perf_counter() - t0)
+        log["sweeps"].append(sweep)
+        log["frame_ids"].append(frame_id)
+        log["gyr"].append(gyr_rate)
+        return out
+    pipe.engine.step = step
+    pipe.process_measurements(meas)
+    return pipe, log
+
+
+def run_sharded(eng, log, capture_at=None, keep=()) -> dict:
+    """`eng.step` over the logged sweeps from the logged first state, with
+    the launch counters set to 0 just before and read just after; the
+    `knn_plane_assoc` call of step `capture_at` is captured and the
+    registered frames of the steps in `keep` are kept."""
+    state, vmap = log["first_state"], eng.make_map()
+    recs, overflow, seconds, kept = [], [], [], {}
+    digest = hashlib.sha1()
+    cap = Capture("knn_plane_assoc")
+    plane_fit.reset_launches()
+    with cuda_knn_calls() as knn_calls, \
+            Spy((sharded_lio.ShardedLioEngine, "_iekf", "updates")) as upd:
+        for i, (sweep, fid, gyr) in enumerate(zip(
+                log["sweeps"], log["frame_ids"], log["gyr"])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == capture_at:
+                with cap:
+                    out = eng.step(state, vmap, sweep, fid, gyr)
+            else:
+                out = eng.step(state, vmap, sweep, fid, gyr)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            state, vmap = out.state, out.voxel_map
+            recs.append(out.record)
+            overflow.append(out.route_overflow)
+            for t in (out.frame_pts_world, out.frame_valid, out.inserted):
+                digest.update(t.cpu().numpy().tobytes())
+            if i in keep:
+                kept[i] = (out.frame_pts_world, out.frame_valid,
+                           out.state.q, out.state.p)
+    return {"records": torch.stack(recs).cpu().numpy(),
+            "overflow": torch.stack(overflow).cpu().numpy(),
+            "seconds": np.array(seconds), "state": state, "map": vmap,
+            "map_size": int(eng.map_size(vmap)),
+            "launches": dict(plane_fit.launches),
+            "plain_knn_calls_on_cuda": knn_calls.n,
+            "iekf_updates": upd.calls.get("updates", 0),
+            "frames_digest": digest.hexdigest(), "kept": kept,
+            "capture": cap.args}
+
+
+def sweeps_per_s(seconds, n_warm: int) -> float:
+    return (len(seconds) - n_warm) / float(np.sum(seconds[n_warm:]))
+
+
+def check_sharded(name: str, run: dict, ref: np.ndarray,
+                  single_size: int) -> dict:
+    """The sharded run against the single-device records `ref` (rows of
+    pack_record): positions and quaternions within the bars of
+    tests/test_sharded_lio.py, success on every frame, the owned map
+    size, no routing overflow, `knn_plane_assoc` once per IEKF update and
+    no other entry or plain kNN on the card."""
+    rec = run["records"]
+    gap_p = float(np.abs(rec[:, 0:3] - ref[:, 0:3]).max())
+    gap_q = float(np.abs(rec[:, 3:7] - ref[:, 3:7]).max())
+    same_success = bool(np.array_equal(rec[:, 16] > 0.5, ref[:, 16] > 0.5))
+    launches = run["launches"]
+    others = {k: v for k, v in launches.items()
+              if k != "knn_plane_assoc" and v}
+    updates = run["iekf_updates"]
+    out = {"frames": len(rec), "position_gap_m": gap_p,
+           "quaternion_gap": gap_q, "success_equal": same_success,
+           "map_size": run["map_size"], "single_map_size": single_size,
+           "route_overflow": int(run["overflow"].sum()),
+           "iekf_updates": updates, "launches": launches,
+           "plain_knn_calls_on_cuda": run["plain_knn_calls_on_cuda"]}
+    fails = []
+    if gap_p > SHARDED_POS or gap_q > SHARDED_QUAT:
+        fails.append(f"trajectory gap {gap_p} m / {gap_q}")
+    if not same_success:
+        fails.append("success differs")
+    if run["map_size"] != single_size:
+        fails.append(f"map_size {run['map_size']} != {single_size}")
+    if out["route_overflow"]:
+        fails.append(f"route_overflow {out['route_overflow']}")
+    if launches["knn_plane_assoc"] != updates or updates < len(rec):
+        fails.append(f"knn_plane_assoc launched {launches['knn_plane_assoc']}"
+                     f" times for {updates} IEKF updates")
+    if others or run["plain_knn_calls_on_cuda"]:
+        fails.append(f"launched {others}, plain kNN "
+                     f"{run['plain_knn_calls_on_cuda']} times on the card")
+    if fails:
+        raise AssertionError(f"sharded {name}: " + "; ".join(fails))
+    return out
+
+
+def ba_window(kept: dict):
+    """8 keyframes of 512 registered points each (a seeded choice of the
+    frame's valid points), in the body frame of the keyframe's pose, with
+    the odometry between consecutive keyframes from the same poses."""
+    if len(kept) != BA_KEYFRAMES:
+        raise AssertionError(f"{len(kept)} keyframes kept, want "
+                             f"{BA_KEYFRAMES}: the run is too short")
+    rng = np.random.RandomState(7)
+    qs, ts, pts = [], [], []
+    for i in sorted(kept):
+        world, valid, q, p = kept[i]
+        idx = np.sort(rng.choice(np.nonzero(valid.cpu().numpy())[0],
+                                 BA_POINTS, replace=False))
+        w = world[torch.as_tensor(idx, device=world.device)]
+        pts.append((w - p) @ lie.quat_to_rot(q))     # R^T (w - p)
+        qs.append(q)
+        ts.append(p)
+    q, t = torch.stack(qs), torch.stack(ts)
+    dev = q.device
+    q_odo, t_odo = zip(*(pose_graph.edge_from_poses(q[k], t[k], q[k + 1],
+                                                    t[k + 1])
+                         for k in range(len(qs) - 1)))
+    window = pba.KeyframeWindow(
+        q=q, t=t, points=torch.stack(pts).contiguous(),
+        pt_valid=torch.ones((len(qs), BA_POINTS), dtype=torch.bool,
+                            device=dev),
+        kf_valid=torch.ones((len(qs),), dtype=torch.bool, device=dev))
+    return window, torch.stack(q_odo), torch.stack(t_odo)
+
+
+def world_of_one(log, cfg, ref, single_map, single_p, n_warm,
+                 workdir) -> tuple:
+    """(a) The sharded engine as a world of one over NCCL (so the
+    collectives really run through NCCL), then `compact` and one sharded
+    windowed-BA solve on its final map."""
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(workdir, "store1"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(device="cuda")
+        eng = sharded_lio.ShardedLioEngine(cfg, mesh)
+        n = len(log["sweeps"])
+        keep = range(n - 1 - (BA_KEYFRAMES - 1) * BA_STRIDE, n, BA_STRIDE)
+        run = run_sharded(eng, log, keep=set(keep))
+        out = check_sharded("world of one", run, ref,
+                            int(vm.map_size(single_map)))
+        out.update(backend=dist.get_backend(), ranks=1,
+                   sweeps_per_s=sweeps_per_s(run["seconds"], n_warm))
+        # compact at max_distance from the single-device final position
+        m2, dropped = eng.compact(run["map"], single_p)
+        single_compact = int(vm.map_size(vm.compact_map(
+            single_map, single_p,
+            distance=cfg.odometry_options.max_distance,
+            max_probe=cfg.shapes.map_max_probe)[0]))
+        out["compact"] = {"dropped": int(dropped),
+                          "map_size": int(eng.map_size(m2)),
+                          "single_map_size": single_compact}
+        del m2
+        if out["compact"]["dropped"] or (out["compact"]["map_size"]
+                                         != single_compact):
+            raise AssertionError(f"sharded compact: {out['compact']}")
+        # one sharded windowed-BA solve on the final map
+        window, q_odo, t_odo = ba_window(run["kept"])
+        fn = pba.make_sharded_windowed_ba(
+            mesh, BA_KEYFRAMES, voxel_size=cfg.icp.size_voxel_map,
+            max_probe=cfg.shapes.map_max_probe, iters=BA_ITERS,
+            block_bits=cfg.shapes.map_block_bits)
+        plane_fit.reset_launches()
+        cap = Capture("knn_plane_assoc")
+        with cap:
+            q_ba, t_ba, ovf = fn(run["map"], window, q_odo, t_odo)
+        torch.cuda.synchronize()
+        ba = {"keyframes": BA_KEYFRAMES, "points": BA_POINTS,
+              "iters": BA_ITERS, "route_overflow": int(ovf),
+              "launches": plane_fit.launches["knn_plane_assoc"],
+              "max_shift_m": float((t_ba - window.t).norm(dim=-1).max()),
+              "finite": bool(torch.isfinite(q_ba).all()
+                             and torch.isfinite(t_ba).all())}
+        out["ba"] = ba
+        if ba["route_overflow"] or not ba["finite"] or (
+                ba["launches"] != BA_ITERS):
+            raise AssertionError(f"sharded BA: {ba}")
+        return out, run, cap
+    finally:
+        dist.destroy_process_group()
+
+
+def save_log(log, cfg: LivoConfig, path: str, n_warm: int) -> None:
+    torch.save({"cfg": cfg, "first_state": log["first_state"]._asdict(),
+                "sweeps": [(type(s).__name__, tuple(s))
+                           for s in log["sweeps"]],
+                "frame_ids": log["frame_ids"], "gyr": log["gyr"],
+                "n_warm": n_warm}, path)
+
+
+def sharded_rank_main(rank: int, workdir: str) -> int:
+    """One rank of (b), in a process of its own: two ranks share one card
+    over gloo (NCCL refuses two ranks on one card)."""
+    from sr_livo_tpu_torch.models.eskf import EskfState
+    from sr_livo_tpu_torch.models.odometry import SweepInput, WireSweep
+
+    device = torch.device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store2"),
+                                     SHARDED_RANKS),
+        rank=rank, world_size=SHARDED_RANKS)
+    try:
+        inp = torch.load(os.path.join(workdir, "sweeps.pt"),
+                         map_location=device, weights_only=False)
+        kinds = {"WireSweep": WireSweep, "SweepInput": SweepInput}
+        log = {"first_state": EskfState(**inp["first_state"]),
+               "sweeps": [kinds[k](*f) for k, f in inp["sweeps"]],
+               "frame_ids": inp["frame_ids"], "gyr": inp["gyr"]}
+        eng = sharded_lio.ShardedLioEngine(inp["cfg"],
+                                           pmesh.make_mesh(device=device))
+        run = run_sharded(eng, log,
+                          capture_at=inp["n_warm"] if rank == 0 else None)
+        keys = ("records", "overflow", "seconds", "map_size", "launches",
+                "plain_knn_calls_on_cuda", "iekf_updates", "frames_digest",
+                "capture")
+        res = {k: run[k] for k in keys}
+        res["state"] = {k: v.cpu() for k, v in run["state"]._asdict().items()}
+        res["backend"] = dist.get_backend()
+        torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_ranks(log, cfg, ref, single_size: int, n_warm: int,
+              workdir: str) -> tuple:
+    """(b) Two ranks on one card over gloo, in two processes of this
+    script: every rank's replicated outputs the same bits, and the run
+    against the single-device one as in (a)."""
+    save_log(log, cfg, os.path.join(workdir, "sweeps.pt"), n_warm)
+    cmd = [sys.executable, os.path.abspath(__file__), "--sharded-dir",
+           workdir, "--sharded-rank"]
+    procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"sharded rank {r} exited {p.returncode}:"
+                                 f"\n{text[-4000:]}")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(SHARDED_RANKS)]
+    first = ranks[0]
+    identical = all(
+        np.array_equal(first["records"], r["records"])
+        and np.array_equal(first["overflow"], r["overflow"])
+        and first["frames_digest"] == r["frames_digest"]
+        and first["map_size"] == r["map_size"]
+        and all(torch.equal(v, r["state"][k])
+                for k, v in first["state"].items())
+        for r in ranks[1:])
+    out = check_sharded("two ranks", first, ref, single_size)
+    for r in ranks[1:]:
+        check_sharded("two ranks", r, ref, single_size)
+    out.update(backend=first["backend"], ranks=SHARDED_RANKS,
+               replicated_bit_identical=identical, wall_seconds=wall,
+               launches_per_rank=[r["launches"]["knn_plane_assoc"]
+                                  for r in ranks],
+               iekf_updates_per_rank=[r["iekf_updates"] for r in ranks],
+               sweeps_per_s=sweeps_per_s(first["seconds"], n_warm))
+    if not identical:
+        raise AssertionError("the ranks' replicated outputs differ")
+    return out, first["capture"]
+
+
+def shard_shape(name: str, cap: "Capture", min_neighbors: int,
+                flat_floor: bool) -> dict:
+    """(c) `knn_plane_assoc` against its plain version at a shard shape
+    (a captured map and rows), timed as the other shapes are; a2d held on
+    the rows not flat to rounding (`FLAT_FLOOR`) where `flat_floor`."""
+    vmap, (world, valid, thr), kw = cap.args_on(torch.device("cuda"))
+    pair = fused_assoc_pair(vmap, world, valid, thr, kw)
+    rows = pair[4] >= min_neighbors
+    firm = rows & (flatness(vmap, world, thr, kw)[:rows.shape[0]]
+                   >= FLAT_FLOOR) if flat_floor else rows
+    res = {"shape": name, "q": world.shape[0], "m": kw["max_neighbors"],
+           "n_valid": int(valid.sum()), "map_capacity": vmap.counts.shape[0],
+           "rows_held": int(rows.sum()), "rows_a2d_held": int(firm.sum())}
+    res["max_abs_err"] = hold_assoc(kw, pair, rows, firm,
+                                    math.ceil(0.1 * rows.shape[0]))
+    res["ms"] = graph_ms(lambda: plane_fit.knn_plane_assoc_cuda(
+        vmap, world, valid, thr, **kw))
+    res["call_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_cuda(
+        vmap, world, valid, thr, **kw))
+    res["plain_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_plain(
+        vmap, world, valid, thr, **kw), iters=30, warmup=3)
+    res["bound_ms"], res["bound_by"] = fused_bound_ms(
+        vmap, world, valid, thr, kw, "knn_plane_assoc")
+    return res
+
+
+def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
+    """The map-sharded engine at bench.py's LIO shapes on the slice's run:
+    (a) a world of one over NCCL against the single-device engine on the
+    same sweeps, with `compact` and a sharded BA solve; (b) two ranks on
+    the one card over gloo; (c) the kernel against its plain version at
+    the two shard shapes (the IEKF's K4 x 20 on a rank's local table,
+    captured in (b); the BA's W x 20, captured in (a))."""
+    import tempfile
+
+    pipe, log = record_single_run(sim, cfg)
+    ts, _, _ = pipe.trajectory()
+    ref = np.stack([np.concatenate([
+        r.position, r.quat_wxyz, r.velocity, r.ba, r.bg,
+        [float(r.success), r.num_residuals, r.iterations]])
+        for r in pipe.records])
+    single_rate = sweeps_per_s(np.array(log["seconds"]), n_warm)
+    with tempfile.TemporaryDirectory() as d:
+        a, run, ba_cap = world_of_one(
+            log, cfg, ref, pipe.voxel_map, pipe.state.p, n_warm, d)
+        a["single_sweeps_per_s"] = single_rate
+        a["ate_m"] = tum.ate_rmse(ts, run["records"][:, 0:3], sim.gt_times,
+                                  sim.gt_pos, align=True)
+        emit({"phase": "sharded", "part": "a", **a})
+        if not a["ate_m"] < 0.05:
+            raise AssertionError(f"sharded ATE RMSE {a['ate_m']} m")
+        del run
+        b, k4_args = two_ranks(log, cfg, ref,
+                               int(vm.map_size(pipe.voxel_map)), n_warm, d)
+        b["single_sweeps_per_s"] = single_rate
+        emit({"phase": "sharded", "part": "b", **b})
+    del pipe, log
+    k4_cap = Capture("knn_plane_assoc")
+    k4_cap.args = k4_args
+    if k4_cap.args is None or ba_cap.args is None:
+        raise AssertionError("no shard-shape association was captured")
+    shapes = {"k4": shard_shape("iekf_k4", k4_cap,
+                                cfg.icp.min_number_neighbors, False),
+              "ba": shard_shape("ba_w", ba_cap, 8, True)}
+    emit({"phase": "fused_vs_plain", "sharded": shapes})
+    return {"a": a, "b": b, "shapes": shapes}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["profile", "livo", "longrun",
-                                           "resume", "replay"],
+                                           "resume", "replay", "sharded"],
                         help="run only the device and this phase")
-    only = parser.parse_args().only
+    parser.add_argument("--sharded-rank", type=int,
+                        help=argparse.SUPPRESS)   # a rank of phase sharded
+    parser.add_argument("--sharded-dir", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    only = args.only
+    if args.sharded_rank is not None:
+        return sharded_rank_main(args.sharded_rank, args.sharded_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a machine with an NVIDIA GPU", file=sys.stderr)
@@ -1596,6 +2004,11 @@ def main() -> int:
         profile_phase(sim)
         print(smi, flush=True)
         return 0
+    if only == "sharded":
+        kernels.build("plane_fit")
+        sharded_phase(sim, bench_lio_cfg(cache_association=True))
+        print(smi, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     log = kernels.build("plane_fit")
@@ -1617,6 +2030,7 @@ def main() -> int:
     emit({"phase": "fused_vs_plain",
           **{k: results[k] for k in ("knn_plane_assoc", "knn_plane_rows")}})
     profile_phase(sim)
+    sharded = sharded_phase(sim, bench_lio_cfg(cache_association=True))
     lsim, render_ms = livo_sim()
     livo = livo_phase(lsim, render_ms, bench_livo_cfg())
     longrun, caps = longrun_phase(lsim, bench_livo_cfg())
@@ -1644,6 +2058,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
     summary[0]["backend_shapes"] = backend
+    summary[0]["launches_sharded"] = {
+        "world_of_one_nccl": sharded["a"]["launches"]["knn_plane_assoc"],
+        "two_ranks_gloo": sharded["b"]["launches_per_rank"],
+        "ba": sharded["a"]["ba"]["launches"]}
+    summary[0]["sharded_shapes"] = sharded["shapes"]
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

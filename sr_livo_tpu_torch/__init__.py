@@ -4,7 +4,8 @@ A package beside the JAX reference (`sr_livo_tpu`) that runs the LIVO
 pipeline (sweep cutting, 17-dim ESKF propagation, IEKF point-to-plane
 registration against a device-resident voxel-hash map, map insertion, and
 the vision frame: image preprocess, pyramidal LK, RANSAC gates, camera
-ESIKFs, the colored map) on one NVIDIA GPU.  Plain tensor code is
+ESIKFs, the colored map) on one NVIDIA GPU, and the map-sharded LIO
+engine over several ranks (parallel.sharded_lio).  Plain tensor code is
 PyTorch; the JAX package's one Pallas kernel (the plane-residual row) is a
 hand-written CUDA kernel (`csrc/plane_fit.cu`).  Module names mirror the
 JAX package.

@@ -67,6 +67,32 @@ def voxel_map_to_numpy(vmap: VoxelMap) -> Dict[str, np.ndarray]:
     return _to_numpy(vmap)
 
 
+def sharded_map_from_numpy(obj, rank: int, n_shards: int,
+                           device="cpu") -> VoxelMap:
+    """Rank `rank`'s local table of a sharded map laid out as the JAX
+    package's ShardedLioEngine map: each field's leading (slot) dimension
+    is the n_shards sub-tables of `local_capacity` slots concatenated."""
+    arrays = _fields(obj, VoxelMap._fields)
+    n_slots = arrays["keys"].shape[0]
+    if n_slots % n_shards:
+        raise ValueError(f"{n_slots} slots do not split into {n_shards}")
+    part = {}
+    for k, a in arrays.items():
+        step = a.shape[0] // n_shards
+        part[k] = a[rank * step:(rank + 1) * step]
+    return _to_torch(VoxelMap, part, device, _MAP_DTYPES)
+
+
+def sharded_map_to_numpy(local_maps) -> Dict[str, np.ndarray]:
+    """The inverse of sharded_map_from_numpy: the ranks' local tables (in
+    rank order, as VoxelMaps or numpy dicts) concatenated along the slot
+    dimension, the JAX package's sharded layout."""
+    parts = [_to_numpy(m) if isinstance(m, VoxelMap) else _fields(
+        m, VoxelMap._fields) for m in local_maps]
+    return {k: np.concatenate([p[k] for p in parts], axis=0)
+            for k in VoxelMap._fields}
+
+
 def camera_state_from_numpy(obj, device="cpu") -> CameraState:
     return _to_torch(CameraState, obj, device,
                      {k: torch.float32 for k in CameraState._fields})

@@ -64,6 +64,28 @@ def build_residuals(voxel_map: vm.VoxelMap, keypts_raw, keypts_valid, q, t,
     return _cap_residuals(h_x, h, good, max_num_residuals)
 
 
+def chunked_assoc(voxel_map: vm.VoxelMap, world, n_valid, *, voxel_size,
+                  max_neighbors, max_probe, nb_voxels, threshold_capacity,
+                  chunk):
+    """kNN + neighbourhood PCA over only the first `n_valid` rows of
+    `world` (port of `models/lio.py::chunked_assoc`; the valid rows are a
+    prefix: frame.voxel_subsample and routing.compact emit prefix-compacted
+    rows).
+
+    On CPU tensors the plain association runs in `chunk`-row slices over
+    the prefix; on CUDA tensors it is one `knn_plane_assoc` launch over all
+    rows with the prefix as its mask, and rows past it skip the search in
+    the kernel.  Either way compute follows the actual row count, not the
+    static budget.  Returns (normal (Q, 3), a2d (Q,), closest (Q, 3),
+    n_found (Q,) int32); rows past the processed prefix (the last chunk
+    on the CPU, the prefix itself on CUDA) are zero."""
+    valid = torch.arange(world.shape[0], device=world.device) < n_valid
+    return plane_fit.knn_plane_assoc(
+        voxel_map, world, valid, threshold_capacity, voxel_size=voxel_size,
+        max_neighbors=max_neighbors, max_probe=max_probe,
+        nb_voxels=nb_voxels, chunk=chunk)
+
+
 def _cap_residuals(h_x, h, good, max_num_residuals) -> ResidualBatch:
     """Residual cap in keypoint order (optimize.cpp:107)."""
     if max_num_residuals > 0:
@@ -179,25 +201,68 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
             return build_residuals(voxel_map, keypts_raw, keypts_valid, s.q,
                                    s.p, last_trans, r_il, t_il, **icp)
 
+    def normal_equations(s: EskfState):
+        res = residuals(s)
+        hth, hth_h = normal_sums(res.h_x, res.h)
+        return hth.to(res.h_x.dtype), hth_h.to(res.h_x.dtype), res.num
+
+    return iekf_iterations(
+        state, pred, normal_equations,
+        min_number_neighbors=min_number_neighbors, max_iters=max_iters,
+        threshold_translation_norm=threshold_translation_norm,
+        threshold_orientation_norm=threshold_orientation_norm,
+        laser_point_cov=laser_point_cov, check_convergence=check_convergence)
+
+
+def normal_sums(h_x: torch.Tensor, h: torch.Tensor):
+    """(H^T H, H^T h) of the residual rows in float64; the caller rounds
+    them to the rows' type once, after the sharded engine's psum of the
+    ranks' partials.
+
+    A deliberate departure from the JAX package, which sums in float32
+    (sr_livo_tpu/models/lio.py:360 and its sharded psum).  Products of
+    float32 values are exact in float64 and only the float64 additions
+    round, so the sums rounded to float32 very likely, though not
+    certainly, have the same bits whatever the order of the rows or
+    their split over ranks.  float32 sums differ in the last bits with
+    the split, and over a long run that moves a map point: the sharded
+    engine would no longer track the single-device one."""
+    h_x64 = h_x.double()
+    return h_x64.T @ h_x64, h_x64.T @ h.double()
+
+
+def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
+                    min_number_neighbors: int, max_iters: int,
+                    threshold_translation_norm: float,
+                    threshold_orientation_norm: float,
+                    laser_point_cov: float, check_convergence: bool = True):
+    """The iteration loop of updateIEKF (optimize.cpp:133-314) from the
+    starting iterate `state` against the prediction prior `pred`.
+
+    `normal_equations(s)` gives the point-to-plane system at iterate `s`:
+    (H^T H (6, 6), H^T h (6,), residual count () int32) — from this
+    device's rows, or psum'd over the map mesh by the sharded engine.
+    Each iteration reads two flags back to the host to decide whether to
+    go on, so every value they come from must be the same on every rank.
+    Returns (state, IekfSummary); on failure the state is `state`."""
     f = dict(dtype=state.cov.dtype, device=state.cov.device)
     eye17 = torch.eye(17, **f)
     s, it, ok = state, 0, True
     n_res = torch.zeros((), dtype=torch.int32, device=f["device"])
     cov_final = state.cov
     while True:
-        res = residuals(s)
-        enough = res.num >= min_number_neighbors
+        hth, hth_h, num = normal_equations(s)
+        enough = num >= min_number_neighbors
 
         d_x_cur, d_so3, so3_dg, b_x_pred = _error_vs_prediction(s, pred)
         j_old = _reset_jacobian(d_so3, so3_dg, b_x_pred)
         d_x_new = j_old @ d_x_cur
         cov = j_old @ state.cov @ j_old.T
 
-        hth = res.h_x.T @ res.h_x                            # (6, 6)
         temp = torch.linalg.inv(cov / laser_point_cov)
         temp[0:6, 0:6] += hth
         temp_inv = torch.linalg.inv(temp)
-        k_h = temp_inv[:, 0:6] @ (res.h_x.T @ res.h)         # (17,)
+        k_h = temp_inv[:, 0:6] @ hth_h                       # (17,)
         k_x = torch.zeros((17, 17), **f)
         k_x[:, 0:6] = temp_inv[:, 0:6] @ hth
         d_x = -k_h + (k_x - eye17) @ d_x_new
@@ -227,7 +292,7 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
         cov_final = torch.where(apply, j_new @ (cov - k_x @ cov) @ j_new.T,
                                 cov_final)
         it += 1
-        n_res = res.num
+        n_res = num
         ok, conv = (bool(v) for v in torch.stack([enough, converged]).tolist())
         if not (it < max_iters + 1 and not conv and ok):
             break

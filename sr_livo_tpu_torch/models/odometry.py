@@ -82,6 +82,9 @@ class SweepOutput(NamedTuple):
     inserted: torch.Tensor          # (F,) bool — stored into the map
     record: torch.Tensor            # (19,) packed per-frame record
     #   [p(3), q(4), v(3), ba(3), bg(3), success, n_residuals, iters]
+    route_overflow: torch.Tensor    # () int32 — points dropped by the
+    #   sharded engine's fixed routing budgets this sweep (always 0 on the
+    #   single-chip engine; counted, never silently truncated)
 
 
 def pack_record(state: EskfState, summary: lio.IekfSummary) -> torch.Tensor:
@@ -250,7 +253,9 @@ def _sweep_core(state: EskfState, voxel_map: vm.VoxelMap, sweep: SweepInput,
     return SweepOutput(state=state_new, voxel_map=voxel_map, summary=summary,
                        frame_pts_world=frame_world, frame_valid=frame_valid,
                        inserted=inserted,
-                       record=pack_record(state_new, summary))
+                       record=pack_record(state_new, summary),
+                       route_overflow=torch.zeros(
+                           (), dtype=torch.int32, device=frame_world.device))
 
 
 class LioEngine:

@@ -194,11 +194,35 @@ def _insert_gate_phase_chunked(vmap: VoxelMap, pts, valid, coords,
     return cm, sl, bc
 
 
+def insert_gate(vmap: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
+                voxel_size: float, min_distance: float, max_probe: int,
+                gate_chunk: int = 0, with_aux: bool = False):
+    """The candidate predicate of insert() alone (its phases 1-2): which
+    points of the batch would be insertion candidates against the CURRENT
+    table.  The sharded engine uses it to apply the single-chip `budget`
+    prefix globally (parallel.sharded_lio).
+
+    With `with_aux=True` it returns (gate, slot, blk_cnt), which insert()
+    takes as `pre_gate` so that the probe and the block-distance gather
+    (the dominant insert cost) run once."""
+    coords = voxel_coords(pts, voxel_size)
+    if gate_chunk and gate_chunk < pts.shape[0]:
+        gate, slot, cnt = _insert_gate_phase_chunked(
+            vmap, pts, valid, coords, min_distance, max_probe, gate_chunk)
+    else:
+        gate, slot, cnt = _insert_gate_phase(vmap, pts, valid, coords,
+                                             min_distance, max_probe)
+    return (gate, slot, cnt) if with_aux else gate
+
+
 def insert(vmap: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
            voxel_size: float, min_distance: float, max_probe: int,
            point_ids: Optional[torch.Tensor] = None,
            budget: Optional[int] = None,
-           gate_chunk: int = 0) -> Tuple[VoxelMap, torch.Tensor]:
+           gate_chunk: int = 0,
+           pre_gate: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]] = None,
+           ) -> Tuple[VoxelMap, torch.Tensor]:
     """Insert a batch of world points with addPointToMap semantics, IN
     PLACE: `vmap`'s tensors are updated and `vmap` is returned.
 
@@ -209,6 +233,9 @@ def insert(vmap: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
     ascending point index.  `budget` bounds how many gate-passing points go
     through the claim/rank/scatter phases (the rest are dropped for this
     call); `gate_chunk` > 0 gates in chunks up to the last valid row.
+    `pre_gate` is insert_gate(..., with_aux=True) run on this table as it
+    is now; `valid` may narrow its gate (the sharded engine's global
+    insert-budget mask).
 
     Returns (vmap, accepted) where accepted marks the stored points.
     """
@@ -220,12 +247,11 @@ def insert(vmap: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
     if point_ids is None:
         point_ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
-    if gate_chunk and gate_chunk < n:
-        cand_mask, slot, blk_cnt = _insert_gate_phase_chunked(
-            vmap, pts, valid, coords, min_distance, max_probe, gate_chunk)
-    else:
-        cand_mask, slot, blk_cnt = _insert_gate_phase(
-            vmap, pts, valid, coords, min_distance, max_probe)
+    if pre_gate is None:
+        pre_gate = insert_gate(vmap, pts, valid, voxel_size, min_distance,
+                               max_probe, gate_chunk, with_aux=True)
+    gate, slot, blk_cnt = pre_gate
+    cand_mask = gate & valid
 
     # Phase 3 — compact candidates to the budget, stable by index.
     idx_b = torch.arange(b, dtype=torch.int64, device=dev)

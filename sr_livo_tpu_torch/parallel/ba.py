@@ -1,9 +1,11 @@
-"""Windowed bundle adjustment over keyframes (port of the single-device
-part of `sr_livo_tpu/parallel/ba.py`).
+"""Windowed bundle adjustment over keyframes (port of
+`sr_livo_tpu/parallel/ba.py`).
 
 A sliding window of keyframe poses is jointly refined against the voxel
 map with point-to-plane factors plus inter-keyframe odometry priors, by
 Gauss-Newton on the banded 6K x 6K normal system (keyframe 0 gauge-fixed).
+`windowed_ba` runs on one device; `make_sharded_windowed_ba` partitions
+the keyframes and the map blocks over the map mesh (parallel.mesh).
 
 The association (kNN over the live map, neighbourhood PCA, closest
 neighbour) is the plane kernel's fused entry `plane_fit.knn_plane_assoc`:
@@ -22,6 +24,8 @@ import torch
 
 from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.ops import voxel_map as vm
+from sr_livo_tpu_torch.parallel import routing
+from sr_livo_tpu_torch.parallel.mesh import Mesh
 from sr_livo_tpu_torch.utils import lie
 
 
@@ -138,3 +142,103 @@ def windowed_ba(voxel_map: vm.VoxelMap, window: KeyframeWindow,
                                  prior_rot_w, prior_t_w, damping)
         q, t = _apply(q, t, dx)
     return q, t
+
+
+def make_sharded_windowed_ba(mesh: Mesh, n_keyframes: int, *,
+                             voxel_size: float, max_neighbors: int = 20,
+                             min_neighbors: int = 8, max_probe: int = 16,
+                             max_dist: float = 0.5, iters: int = 3,
+                             prior_rot_w: float = 100.0,
+                             prior_t_w: float = 100.0,
+                             damping: float = 1e-3,
+                             block_bits: int = 4,
+                             route_slack: float = 4.0):
+    """Windowed BA with the keyframes and the map blocks partitioned over
+    `mesh`, owner-routed like the per-sweep sharded LIO step.  The map is
+    each rank's ShardedLioEngine sub-table (block owner WITH voxel
+    halos).  Once per Gauss-Newton iteration every keyframe point of this
+    rank's keyframe slice goes to the centre-block owner of its current
+    world position (one all-to-all), which associates it on its LOCAL
+    table (`knn_plane_assoc`, one launch over the routed rows) and adds
+    its 6x6/6 normal-equation terms into per-keyframe blocks.  One psum
+    assembles the banded system, which every rank solves on the same bits.
+
+    `block_bits` must match the engine's cfg.shapes.map_block_bits;
+    `route_slack` sizes the static per-destination budgets against
+    spatial density (rows beyond a budget are dropped for that iteration
+    and counted: the returned overflow is psum'd over ranks and
+    iterations).
+
+    Returns fn(local_map, window, q_odo, t_odo) -> (q (K, 4), t (K, 3),
+    route_overflow () int32), to be called on every rank with the same
+    window."""
+    n_dev = mesh.size
+    if n_keyframes % n_dev:
+        raise ValueError(f"{n_dev} ranks must divide {n_keyframes} "
+                         "keyframes")
+    k_local = n_keyframes // n_dev
+
+    def run(local_map: vm.VoxelMap, window: KeyframeWindow, q_odo, t_odo):
+        me = mesh.rank
+        K, N = window.points.shape[0], window.points.shape[1]
+        dev = window.points.device
+        total = K * N
+        # static routing budgets
+        B = min(total, routing.rup(
+            int(total / n_dev / n_dev * route_slack) + 32))
+        W = min(total, routing.rup(int(total / n_dev * route_slack) + 64))
+        # this rank's keyframe slice, flattened to rows
+        mine = slice(me * k_local, (me + 1) * k_local)
+        pts_l = window.points[mine].reshape(k_local * N, 3)
+        val_l = window.pt_valid[mine].reshape(k_local * N)
+        kf_l = (me * k_local + torch.arange(
+            k_local, dtype=torch.int32, device=dev).repeat_interleave(N))
+        threshold = torch.ones((), dtype=torch.int32, device=dev)
+        q, t = window.q, window.t
+        ovf = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(iters):
+            # rows go to the centre-block owner of their CURRENT world
+            # position (poses move between iterations)
+            world_l = lie.quat_rotate(q[kf_l], pts_l) + t[kf_l]
+            dest = routing.shard_of(vm.voxel_coords(world_l, voxel_size),
+                                    n_dev, block_bits)
+            buf, bval, d = routing.pack_for_exchange(
+                dest, val_l, routing.pack_cols(pts_l, kf_l), n_dev, B)
+            ovf += d
+            rcv, rval = routing.exchange(buf, bval, mesh)
+            qrows, qval, d = routing.compact(rcv, rval, W)
+            ovf += d
+            body_pts = qrows[:, 0:3]
+            kf_q = torch.clamp(routing.unpack_col_i32(qrows, 3), 0, K - 1
+                               ).to(torch.int64)
+            world = (lie.quat_rotate(q[kf_q], body_pts) + t[kf_q]
+                     ).contiguous()
+            # qval is a prefix (routing.compact): the kernel associates
+            # only the routed rows
+            normal, a2d, closest, n_found = plane_fit.knn_plane_assoc(
+                local_map, world, qval, threshold, voxel_size=voxel_size,
+                max_neighbors=max_neighbors, max_probe=max_probe,
+                nb_voxels=1)
+            enough = n_found >= min_neighbors
+            dist = torch.sum(normal * (world - closest), dim=-1)
+            w = torch.where(qval & enough & (torch.abs(dist) < max_dist),
+                            a2d * a2d, torch.zeros_like(a2d))
+            r_q = lie.quat_to_rot(q[kf_q])
+            j_rot = -torch.einsum("ni,nij,njk->nk", normal, r_q,
+                                  lie.skew(body_pts))
+            j = torch.cat([j_rot, normal], dim=-1)                # (W, 6)
+            jw = j * w[:, None]
+            kf_tgt = torch.where(w > 0, kf_q, K)                 # K: spare
+            h_all = torch.zeros((K + 1, 6, 6), dtype=jw.dtype, device=dev)
+            h_all.index_add_(0, kf_tgt, torch.einsum("wi,wj->wij", jw, j))
+            b_all = torch.zeros((K + 1, 6), dtype=jw.dtype, device=dev)
+            b_all.index_add_(0, kf_tgt, jw * dist[:, None])
+            h_all = mesh.psum(h_all[:K])
+            b_all = mesh.psum(b_all[:K])
+            dx = _assemble_and_solve(h_all, b_all, q, t, q_odo, t_odo,
+                                     window.kf_valid, prior_rot_w,
+                                     prior_t_w, damping)
+            q, t = _apply(q, t, dx)
+        return q, t, mesh.psum(ovf)
+
+    return run

@@ -1,7 +1,11 @@
 """The port stands alone: `sr_livo_tpu_torch` and `chip_smoke.py` import
 neither JAX nor anything of the JAX package, nor use the JAX package's
 native library or build anything under `native/`, and `chip_smoke.py`
-fails (printing no result) where there is no GPU or no port beside it."""
+fails (printing no result) where there is no GPU or no port beside it.
+The rank worker of the multi-device tests (tests/torch_shard_worker.py),
+the card's collectives probe (tests/torch_gloo_probe.py) and the
+card-only test files import no JAX either: they run in processes and on
+machines without it."""
 import os
 import pkgutil
 import re
@@ -29,6 +33,15 @@ def _modules():
         sr_livo_tpu_torch.__path__, "sr_livo_tpu_torch."))
 
 
+# torch-only test helpers and the card-only test files
+TORCH_ONLY_TESTS = sorted(
+    [os.path.join(REPO, "tests", f) for f in ("torch_shard_worker.py",
+                                              "torch_gloo_probe.py")]
+    + [os.path.join(REPO, "tests", f)
+       for f in os.listdir(os.path.join(REPO, "tests"))
+       if f.startswith("test_torch_") and f.endswith("_gpu.py")])
+
+
 def _sources(suffixes=(".py",)):
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PKG_DIR):
@@ -53,7 +66,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "sys.modules['jaxlib'] = None",
         "sys.modules['sr_livo_tpu'] = None",
         f"sys.path.insert(0, {REPO!r})",
-        f"for m in {mods!r} + ['chip_smoke']:",
+        f"for m in {mods!r} + ['chip_smoke', 'tests.torch_shard_worker',",
+        "               'tests.torch_gloo_probe']:",
         "    importlib.import_module(m)",
         "assert not any(k == 'jax' or k.startswith(('jax.', 'sr_livo_tpu.'))",
         "               for k, v in sys.modules.items() if v is not None)",
@@ -65,7 +79,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert proc.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("path", _sources(),
+@pytest.mark.parametrize("path", _sources() + TORCH_ONLY_TESTS,
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_source_has_no_jax_import(path):
     with open(path) as f:

@@ -22,6 +22,7 @@ from sr_livo_tpu.ops import voxel_map as jvm
 from sr_livo_tpu.utils import lie as jlie
 from sr_livo_tpu_torch import convert
 from sr_livo_tpu_torch.models import lio as tlio
+from sr_livo_tpu_torch.ops import voxel_map as tvm
 from sr_livo_tpu_torch.ops import plane_fit
 
 RNG = np.random.RandomState(23)
@@ -132,3 +133,58 @@ def test_cap_residuals_prefix_matches_jax():
                                       np.asarray(getattr(j, name)),
                                       err_msg=name)
     assert int(t.num) == 300
+
+
+
+@pytest.fixture(scope="module")
+def noisy_scene():
+    """The scene's floor and walls with 1 cm of noise (exactly planar
+    neighbourhoods leave a2d to float32 rounding), in a 2^12-slot map built
+    by the port's insert (bit for bit the JAX package's), as numpy."""
+    rng = np.random.RandomState(29)
+    u = rng.uniform(-6, 6, (3000, 2))
+    world = np.concatenate([
+        np.c_[u[:, 0], u[:, 1], np.zeros(3000)],
+        np.c_[np.full(3000, 6.0), u[:, 0], u[:, 1] * 0.5 + 3],
+        np.c_[u[:, 0], np.full(3000, 6.0), u[:, 1] * 0.5 + 3]])
+    world = (world + rng.randn(*world.shape) * 0.01).astype(np.float32)
+    m = tvm.make_map(1 << 12, 20)
+    tvm.insert(m, torch.as_tensor(world), torch.ones(len(world), dtype=bool),
+               1.0, 0.05, 16)
+    keypts = (world[rng.choice(len(world), N_KEY, replace=False)]
+              + rng.randn(N_KEY, 3) * 0.05).astype(np.float32)
+    return convert.voxel_map_to_numpy(m), keypts
+
+
+@pytest.mark.parametrize("n_valid,chunk,nb_voxels", [
+    (N_VALID, 128, 1), (N_VALID, 128, 2), (0, 128, 1), (N_KEY, 64, 1),
+    (N_VALID, 4096, 1)])
+def test_chunked_assoc_matches_jax(noisy_scene, n_valid, chunk, nb_voxels):
+    """The association over the valid prefix only: neighbour counts and
+    closest neighbours exactly and zero rows past the chunks, a2d within
+    2e-4 and the sign-free normal within 2e-3 on rows with at least 3
+    neighbours (the tolerances of tests/test_torch_knn_plane.py)."""
+    m, keypts = noisy_scene
+    kw = dict(voxel_size=1.0, max_neighbors=20, max_probe=16,
+              nb_voxels=nb_voxels, chunk=chunk)
+    jn, ja, jc, jf = (np.asarray(a) for a in jlio.chunked_assoc(
+        jvm.VoxelMap(**{k: jnp.asarray(v) for k, v in m.items()}),
+        jnp.asarray(keypts), jnp.int32(n_valid),
+        threshold_capacity=jnp.int32(1), **kw))
+    before = dict(plane_fit.launches)
+    tn, ta, tc, tf = (a.numpy() for a in tlio.chunked_assoc(
+        convert.voxel_map_from_numpy(m), torch.as_tensor(keypts),
+        torch.tensor(n_valid), threshold_capacity=torch.tensor(
+            1, dtype=torch.int32), **kw))
+    assert plane_fit.launches == before           # CPU: the plain version
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_allclose(ta, ja, atol=2e-4, rtol=0)
+    plane = tf >= 3
+    sign = np.where((tn * jn).sum(-1, keepdims=True) < 0, -1.0, 1.0)
+    np.testing.assert_allclose((tn * sign)[plane], jn[plane], atol=2e-3,
+                               rtol=0)
+    if chunk < N_KEY:    # rows past the last chunk are not searched
+        end = -(-n_valid // chunk) * chunk
+        assert not tf[end:].any() and not tc[end:].any()
+    assert (tf[:n_valid] >= 12).sum() >= 0.8 * n_valid

@@ -175,3 +175,68 @@ def test_convert_roundtrip(maps):
     _assert_maps_equal(back, jm)
     again = convert.voxel_map_from_numpy(convert.voxel_map_to_numpy(tm))
     _assert_maps_equal(again, jm)
+
+
+def _gate_batch(jm):
+    """Points on and off the map's surfaces, near-duplicates of stored
+    points (the min-distance gate), new voxels, and validity with holes."""
+    keys = np.asarray(jm.keys)
+    used = keys[keys[:, 0] != jvm.EMPTY][:300].astype(np.float32)
+    pts = np.concatenate([
+        used + RNG.uniform(0.0, 1.0, used.shape),
+        np.asarray(jm.points)[:400:2] + 0.01,
+        RNG.uniform(-12, 12, (500, 3))]).astype(np.float32)
+    valid = RNG.rand(len(pts)) < 0.85
+    valid[-40:] = False
+    return pts, valid
+
+
+@pytest.mark.parametrize("gate_chunk", [0, 128, 4096])
+def test_insert_gate_bit_exact(maps, gate_chunk):
+    """Candidate masks, resolved slots and block counts, chunked (a
+    validity pattern with holes) and whole."""
+    jm, tm, _ = maps
+    pts, valid = _gate_batch(jm)
+    kw = dict(voxel_size=1.0, min_distance=0.05, max_probe=8,
+              gate_chunk=gate_chunk)
+    jg = jvm.insert_gate(jm, jnp.asarray(pts), jnp.asarray(valid), **kw,
+                         with_aux=True)
+    tg = tvm.insert_gate(tm, torch.as_tensor(pts), torch.as_tensor(valid),
+                         **kw, with_aux=True)
+    for name, t, j in zip(("gate", "slot", "blk_cnt"), tg, jg):
+        np.testing.assert_array_equal(t.numpy().astype(np.int64),
+                                      np.asarray(j).astype(np.int64),
+                                      err_msg=name)
+    gate = tg[0].numpy()
+    assert 0 < gate.sum() < valid.sum()
+    mask = tvm.insert_gate(tm, torch.as_tensor(pts), torch.as_tensor(valid),
+                           **kw)
+    np.testing.assert_array_equal(mask.numpy(), gate)
+
+
+def test_insert_with_pre_gate_bit_exact(maps):
+    """insert(pre_gate=insert_gate(..., with_aux=True)) with `valid`
+    narrowed (the sharded engine's insert-budget mask): the same tables
+    and accepted mask as the JAX package's, and as a plain insert of the
+    narrowed batch."""
+    jm, tm, _ = maps
+    pts, valid = _gate_batch(jm)
+    kw = dict(voxel_size=1.0, min_distance=0.05, max_probe=8)
+    narrowed = valid & (RNG.rand(len(pts)) < 0.7)
+    jpre = jvm.insert_gate(jm, jnp.asarray(pts), jnp.asarray(valid), **kw,
+                           gate_chunk=128, with_aux=True)
+    jm2, ja = jvm.insert(jm, jnp.asarray(pts), jnp.asarray(narrowed), **kw,
+                         pre_gate=jpre)
+    tm2 = convert.voxel_map_from_numpy(convert.voxel_map_to_numpy(tm))
+    tpre = tvm.insert_gate(tm2, torch.as_tensor(pts), torch.as_tensor(valid),
+                           **kw, gate_chunk=128, with_aux=True)
+    tm2, ta = tvm.insert(tm2, torch.as_tensor(pts),
+                         torch.as_tensor(narrowed), **kw, pre_gate=tpre)
+    _assert_maps_equal(tm2, jm2)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    assert ta.numpy().sum() > 100
+    tm3 = convert.voxel_map_from_numpy(convert.voxel_map_to_numpy(tm))
+    tm3, ta3 = tvm.insert(tm3, torch.as_tensor(pts),
+                          torch.as_tensor(narrowed), **kw)
+    _assert_maps_equal(tm3, jm2)
+    np.testing.assert_array_equal(ta3.numpy(), ta.numpy())

@@ -8,7 +8,8 @@ Runs on the CPU (the port's plain path) in about eight minutes; the tests
 hold the bounds, this script reports the measured values for PERF.md.
 Sections (all by default): lie, eskf, frame, voxel_map, host, plane,
 knn_plane, lio, odometry, pipeline, image, ransac, color_map, camera,
-vision, long_run, ingest, retry.
+vision, long_run, ingest, retry, sharded (the multi-device slice: 4 gloo
+ranks against JAX's 4-device mesh, about a minute).
 """
 import tests.conftest  # noqa: F401  (JAX on the CPU before anything runs)
 
@@ -40,6 +41,9 @@ from tests import test_torch_pose_graph as PG
 from tests import test_torch_ransac as R
 from tests import test_torch_replay as RP
 from tests import test_torch_replay_r3live as RR
+from tests import test_torch_routing as RT
+from tests import test_torch_sharded_ba as SB
+from tests import test_torch_sharded_lio as SL
 from tests import test_torch_streaming as ST
 from tests import test_torch_vision as VI
 from tests import test_torch_voxel_map as V
@@ -813,11 +817,75 @@ def long_run_rows():
         [(resumed.trajectory()[1], base.trajectory()[1])])
 
 
+def sharded_rows():
+    rng = np.random.RandomState(3)
+    h = rng.randint(-2 ** 31, 2 ** 31 - 1, 4000, dtype=np.int64
+                    ).astype(np.int32)
+    c = rng.randint(-3000, 3000, (4000, 3)).astype(np.int32)
+    row("routing.hash_range_owner, 4000 int32 hashes, n = 4",
+        [(RT.tr.hash_range_owner(torch.as_tensor(h), 4).numpy(),
+          RT.jr.hash_range_owner(jnp.asarray(h), 4))])
+    row("sharded_lio.shard_of, 4000 voxels, n = 4",
+        [(RT.tsl.shard_of(torch.as_tensor(c), 4).numpy(),
+          RT.jsl.shard_of(jnp.asarray(c), 4))])
+    dest = rng.randint(0, 4, 300).astype(np.int32)
+    valid = rng.rand(300) < 0.8
+    rows = RT.tr.pack_cols(torch.as_tensor(rng.randn(300, 3)
+                                           .astype(np.float32)),
+                           torch.arange(300, dtype=torch.int32))
+    for budget in (64, 5):
+        t = RT.tr.pack_for_exchange(torch.as_tensor(dest),
+                                    torch.as_tensor(valid), rows, 4, budget)
+        j = RT.jr.pack_for_exchange(jnp.asarray(dest), jnp.asarray(valid),
+                                    jnp.asarray(rows.numpy()), 4, budget)
+        row(f"routing.pack_for_exchange, 300 rows, budget {budget} "
+            f"({int(t[2])} dropped)",
+            [(t[0].numpy().view(np.int32), np.asarray(j[0]).view(np.int32)),
+             (t[1].numpy(), j[1]), (int(t[2]), int(j[2]))])
+    outs, got, dropped = RT.exchanged.__wrapped__(_TmpDirs())
+    row("routing.exchange, 4 gloo ranks vs shard_map on 4 devices",
+        [(np.stack([o["got"] for o in outs]), got)])
+
+    runs = SL.runs.__wrapped__(_TmpDirs())
+    port, ref = runs["ranks"][0]["lockstep"], runs["jax"]
+    row(f"ShardedLioEngine.step, 4 ranks in lockstep, {len(ref)} sweeps: "
+        "positions", [(p["state"]["p"], r["p"]) for p, r in zip(port, ref)])
+    row("  ... success, residual count, iterations, overflow, map_size",
+        [(np.array([p[k] for k in ("success", "num_residuals", "iterations",
+                                   "route_overflow", "map_size")]),
+          np.array([r[k] for k in ("success", "num_residuals", "iterations",
+                                   "route_overflow", "map_size")]))
+         for p, r in zip(port, ref)])
+    row("  ... frame_valid, inserted",
+        [(p[k], r[k]) for p, r in zip(port, ref)
+         for k in ("frame_valid", "inserted")])
+    row("  ... starved budgets: route_overflow per sweep",
+        [(np.array([p["route_overflow"] for p in runs["ranks"][0]["starved"]]),
+          np.array([r["route_overflow"] for r in runs["jax_starved"]]))])
+    for name in ("closed", "closed_cap"):
+        row(f"ShardedLioEngine (4 ranks) vs the port's LioEngine, closed "
+            f"loop, {'cap 220' if name == 'closed_cap' else 'no cap'}: "
+            "positions",
+            [(p["state"]["p"], s["p"]) for p, s in
+             zip(runs["ranks"][0][name], runs["single"][name])])
+
+    solved = SB.solved.__wrapped__(_TmpDirs())
+    for case, label in enumerate(("normal", "starved")):
+        p, r = solved["ranks"][0]["ba"][case], solved["ref"][case]
+        row(f"ba.make_sharded_windowed_ba, 4 ranks, {label} budgets "
+            f"(overflow {p['overflow']} / {r['overflow']}): q, t",
+            [(p["q"], r["q"]), (p["t"], r["t"])])
+    got = convert.sharded_map_to_numpy([r["compact"]["map"]
+                                        for r in solved["ranks"]])
+    row("ShardedLioEngine.compact, 4 ranks: tables",
+        [(got[f], a) for f, a in solved["compact"]["map"].items()])
+
+
 SECTIONS = (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
             plane_rows, knn_plane_rows, lio_rows, odometry_rows,
             pipeline_rows, image_rows, ransac_rows, color_map_rows,
             camera_rows, vision_rows, long_run_rows, ingest_rows,
-            retry_rows)
+            retry_rows, sharded_rows)
 
 
 def main(argv):
