@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only resume    # device + resume phases only
     python3 chip_smoke.py --only replay    # device + replay + demo phases
     python3 chip_smoke.py --only sharded   # device + sharded phase
+    python3 chip_smoke.py --only gate      # device + gate (+ its shapes)
 
 Phases, each printing one JSON line:
 
@@ -84,10 +85,11 @@ Phases, each printing one JSON line:
      pipeline: the same frames, positions within 5e-3 m, the same colored
      points after the load; checkpoint bytes, save and load seconds.
   10. replay — the real-data entry point: a 20 s bag of the r3live profile
-     of scripts/accuracy_gate.py (its world and `standard` trajectory, a
-     Livox cone at 10 Hz, IMU at 200 Hz, distorted 512 x 640 images
-     rendered on the card with the published calibration), written with
-     tests/rosbag_writer.py and replayed through `drivers.replay_bag`
+     of the accuracy gate (runtime/accuracy_gate.py: its world and
+     `standard` trajectory, a Livox cone at 10 Hz, IMU at 200 Hz,
+     distorted 512 x 640 images rendered on the card with the published
+     calibration), written with runtime/bag_writer.py and replayed
+     through `drivers.replay_bag`
      into LivoPipeline with a VisionModule configured by
      configs/r3live.yaml and the gate's overrides.  It prints the gate's
      record, the replay's wall time, sweeps+images/s and host ms per
@@ -99,14 +101,34 @@ Phases, each printing one JSON line:
      card;
   11. demo    — `python -m sr_livo_tpu_torch.runtime.demo --device cuda
      --duration 10 --vision` in a subprocess: exit 0 and pose.txt.
+  12. gate    — the port's accuracy gate (`python -m
+     sr_livo_tpu_torch.runtime.accuracy_gate --quick`, the port of
+     scripts/accuracy_gate.py) on `cuda`: every profile of the quick gate
+     (r3live with its wire and cache ablations, ntu's Ouster-16 at 20 Hz
+     re-cut at the 10 Hz image stamps, aggressive motion on the dense
+     keypoint grid, revisit with MappingBackend feedback, an image dropout
+     window, JPEG images; 12 s, one seed), its bags rendered on the card
+     into a temporary directory.  One line per profile (the gate's record,
+     the backend's launches, dense-grid steps, the expected launches),
+     then the checks.  It fails when a quick check fails, when a
+     profile's launches differ from what the code calls for
+     (`gate_expected`: `knn_plane_assoc` once per IEKF update plus the
+     backend's, or `knn_plane_rows` once per IEKF iteration in
+     `r3live_nocache`, no other entry), when the backend's differ from 2
+     per BA run plus 9 per verified loop candidate, or on a plain kNN call
+     on CUDA.  Then `fused_vs_plain` holds the fused entries at the gate's
+     new shapes (`GATE_SHAPES`: the ntu keypoints, the aggressive
+     profile's dense grid, `knn_plane_rows` in the widened retry) against
+     their plain versions and times them.
 
 Each entry's times: device ms per launch from CUDA-graph replay (`ms`),
 one eager call of the kernel (`call_ms`) and of the plain version
 (`plain_ms`) as the path makes them, and the least time the card could
 take for the same work (`bound_ms`, by bytes or operations, counted from
 this run's inputs; `launches`, `launches_livo`, `launches_backend`,
-`launches_replay`: the launches in the slice and livo runs, the
-backend's own in the longrun run, and those of the bag replay;
+`launches_replay`, `launches_gate`: the launches in the slice and livo
+runs, the backend's own in the longrun run, those of the bag replay and
+of the gate's profiles; `gate_shapes`: phase `gate`'s;
 `launches_sharded` and `sharded_shapes`: phase `sharded`'s).  Then it
 prints the `{"kernels": [...]}` summary, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase raises and the script
@@ -118,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import hashlib
 import json
 import math
@@ -133,7 +156,7 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from sr_livo_tpu_torch import kernels  # noqa: E402
-from sr_livo_tpu_torch.config import LivoConfig, load_config  # noqa: E402
+from sr_livo_tpu_torch.config import LivoConfig  # noqa: E402
 from sr_livo_tpu_torch.models import eskf as eskf_mod  # noqa: E402
 from sr_livo_tpu_torch.models import lio  # noqa: E402
 from sr_livo_tpu_torch.models.vision import VisionModule  # noqa: E402
@@ -143,6 +166,7 @@ from sr_livo_tpu_torch.parallel import ba as pba  # noqa: E402
 from sr_livo_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from sr_livo_tpu_torch.parallel import pose_graph, sharded_lio  # noqa: E402
 from sr_livo_tpu_torch.pipeline import LivoPipeline  # noqa: E402
+from sr_livo_tpu_torch.runtime import accuracy_gate as gate  # noqa: E402
 from sr_livo_tpu_torch.runtime import drivers, native  # noqa: E402
 from sr_livo_tpu_torch.runtime import synthetic, tum  # noqa: E402
 from sr_livo_tpu_torch.utils import lie  # noqa: E402
@@ -483,6 +507,61 @@ def cuda_knn_calls() -> Spy:
                 lambda vmap, queries, **kw: queries.is_cuda))
 
 
+class BackendLaunches(Spy):
+    """Within the block, the kernel launches per entry made inside
+    `MappingBackend.maybe_add_keyframe` (every association of the backend
+    runs there): `launches`; `backend` is the last backend seen."""
+
+    def __enter__(self):
+        from sr_livo_tpu_torch.parallel.backend import MappingBackend
+        super().__enter__()
+        self.launches = dict.fromkeys(plane_fit.launches, 0)
+        self.backend = None
+        add_keyframe = MappingBackend.maybe_add_keyframe
+
+        def counted(backend, *args, **kw):
+            self.backend = backend
+            before = dict(plane_fit.launches)
+            try:
+                return add_keyframe(backend, *args, **kw)
+            finally:
+                for k in self.launches:
+                    self.launches[k] += plane_fit.launches[k] - before[k]
+        self.patch(MappingBackend, "maybe_add_keyframe", counted)
+        return self
+
+
+class StepWatch(Spy):
+    """Within the block, where the LIO path is: `frame`, the frame id of
+    the running `LioEngine.step`; `dense`, whether that step runs the
+    dense keypoint grid (`adaptive_keypoint_density`); `update`, 1 in the
+    step's first IEKF update and 2 in the re-run over the widened
+    neighbourhood (`retry_wider_neighborhood`), read from `lio.counts`.
+    `dense_steps` counts the steps on the dense grid."""
+
+    @property
+    def update(self) -> int:
+        return lio.counts["updates"] - self.updates_before_step
+
+    def __enter__(self):
+        from sr_livo_tpu_torch.models import odometry
+        super().__enter__()
+        self.frame, self.dense, self.dense_steps = -1, False, 0
+        self.updates_before_step = lio.counts["updates"]
+        step = odometry.LioEngine.step
+
+        def watched_step(engine, state, vmap, sweep, frame_id, *args,
+                         gyr_rate=0.0, **kw):
+            self.frame = frame_id
+            self.updates_before_step = lio.counts["updates"]
+            self.dense = engine.phase(frame_id, gyr_rate) == "steady_dense"
+            self.dense_steps += self.dense
+            return step(engine, state, vmap, sweep, frame_id, *args,
+                        gyr_rate=gyr_rate, **kw)
+        self.patch(odometry.LioEngine, "step", watched_step)
+        return self
+
+
 def slice_phase(sim, cache_association: bool, n_warm: int = 60):
     """One pipeline run; the first `n_warm` measurements (IMU static init
     and the first frames) warm the allocator and are not timed, and the
@@ -654,45 +733,46 @@ def check_fused_rows(vmap, args, kw) -> float:
     return max(err_h, err_hx)
 
 
+def time_fused(res: dict, entry: str, vmap, args, kw) -> dict:
+    """Into `res`: a fused entry's device ms per launch (graph replay),
+    eager call ms and plain ms on these inputs, and its bound (the
+    searched keypoints are the valid ones, `args[-2]` of either entry)."""
+    kernel = getattr(plane_fit, entry + "_cuda")
+    plain = getattr(plane_fit, entry + "_plain")
+    res["ms"] = graph_ms(lambda: kernel(vmap, *args, **kw))
+    res["call_ms"] = time_ms(lambda: kernel(vmap, *args, **kw))
+    res["plain_ms"] = time_ms(lambda: plain(vmap, *args, **kw), iters=30,
+                              warmup=3)
+    res["bound_ms"], res["bound_by"] = fused_bound_ms(
+        vmap, args[0], args[-2], args[-1], kw, entry)
+    return res
+
+
 def fused_phase(captures: dict, min_neighbors: int) -> dict:
     """The fused entries on the slice's map and one sweep's keypoints
     (captured at the end of each mode's warm-up), at nb_voxels 1 and 2;
     timed at the captured (steady-state) setting."""
     results = {}
     cuda = torch.device("cuda")
-    vmap, (world, valid, thr), kw = captures["knn_plane_assoc"].args_on(cuda)
+    vmap, args, kw = captures["knn_plane_assoc"].args_on(cuda)
+    world, valid, thr = args
     res = results["knn_plane_assoc"] = {
         "q": world.shape[0], "m": kw["max_neighbors"],
         "n_valid": int(valid.sum()), "max_abs_err": 0.0}
     for nb in (1, 2):
         res["max_abs_err"] = max(res["max_abs_err"], check_fused_assoc(
             vmap, world, valid, thr, dict(kw, nb_voxels=nb), min_neighbors))
-    res["ms"] = graph_ms(lambda: plane_fit.knn_plane_assoc_cuda(
-        vmap, world, valid, thr, **kw))
-    res["call_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_cuda(
-        vmap, world, valid, thr, **kw))
-    res["plain_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_plain(
-        vmap, world, valid, thr, **kw), iters=30, warmup=3)
-    prefix = torch.arange(world.shape[0], device=world.device) < res["n_valid"]
-    res["bound_ms"], res["bound_by"] = fused_bound_ms(
-        vmap, world, prefix, thr, kw, "knn_plane_assoc")
+    time_fused(res, "knn_plane_assoc", vmap, args, kw)
 
     vmap, args, kw = captures["knn_plane_rows"].args_on(cuda)
-    world, valid, thr = args[0], args[4], args[5]
+    world, valid = args[0], args[4]
     res = results["knn_plane_rows"] = {
         "q": world.shape[0], "m": kw["max_neighbors"],
         "n_valid": int(valid.sum()), "max_abs_err": 0.0}
     for nb in (1, 2):
         res["max_abs_err"] = max(res["max_abs_err"], check_fused_rows(
             vmap, args, dict(kw, nb_voxels=nb)))
-    res["ms"] = graph_ms(lambda: plane_fit.knn_plane_rows_cuda(
-        vmap, *args, **kw))
-    res["call_ms"] = time_ms(lambda: plane_fit.knn_plane_rows_cuda(
-        vmap, *args, **kw))
-    res["plain_ms"] = time_ms(lambda: plane_fit.knn_plane_rows_plain(
-        vmap, *args, **kw), iters=30, warmup=3)
-    res["bound_ms"], res["bound_by"] = fused_bound_ms(
-        vmap, world, valid, thr, kw, "knn_plane_rows")
+    time_fused(res, "knn_plane_rows", vmap, args, kw)
     return results
 
 
@@ -1050,20 +1130,12 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
         plane_fit.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         with cuda_knn_calls() as knn_calls, \
+                BackendLaunches() as backend_calls, \
                 Capture("knn_plane_assoc", _is_ba) as cap_ba, \
                 Capture("knn_plane_assoc", _is_loop) as cap_loop:
             backend = MappingBackend(BackendConfig(feedback_to_filter=True),
                                      device="cuda")
-            backend_launches = dict.fromkeys(plane_fit.launches, 0)
-            add_keyframe = backend.maybe_add_keyframe
-
-            def counted_add_keyframe(*args):
-                # every association of the backend runs in this call
-                before = dict(plane_fit.launches)
-                add_keyframe(*args)
-                for k in backend_launches:
-                    backend_launches[k] += plane_fit.launches[k] - before[k]
-            backend.maybe_add_keyframe = counted_add_keyframe
+            backend_launches = backend_calls.launches
             stream = StreamPublisher(out_dir)
             vision = VisionModule(cfg, device="cuda")
             pipe = LivoPipeline(cfg, vision=vision, backend=backend,
@@ -1221,14 +1293,7 @@ def backend_fused_phase(captures: dict) -> dict:
         if res["rows_a2d_held"] < bars["min_a2d_rows"]:
             raise AssertionError(f"knn_plane_assoc {kw}: a2d held on only "
                                  f"{res['rows_a2d_held']} rows")
-        res["ms"] = graph_ms(lambda: plane_fit.knn_plane_assoc_cuda(
-            vmap, world, valid, thr, **kw))
-        res["call_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_cuda(
-            vmap, world, valid, thr, **kw))
-        res["plain_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_plain(
-            vmap, world, valid, thr, **kw), iters=30, warmup=3)
-        res["bound_ms"], res["bound_by"] = fused_bound_ms(
-            vmap, world, valid, thr, kw, "knn_plane_assoc")
+        time_fused(res, "knn_plane_assoc", vmap, (world, valid, thr), kw)
     return results
 
 
@@ -1311,19 +1376,12 @@ def resume_phase(sim, cfg: LivoConfig, t_ckpt: float = 5.0,
 # Phase 10: a recorded bag replayed through the real-data entry point
 # ---------------------------------------------------------------------------
 
-# The r3live profile of scripts/accuracy_gate.py (:111-119, own copy): the
-# published calibration of the R3Live sequences (configs/r3live.yaml),
-# images at image_scale 0.5 (1024 x 1280 -> 512 x 640) with the lens
-# distortion, the camera-IMU extrinsic and a 6 ms camera time offset.
-R3_TOPICS = ("/livox/lidar", "/livox/imu", "/camera/image_color")
-R3_INTR_FULL = (863.4241, 863.4171, 640.6808, 518.3392)
-R3_DIST = [-0.1080, 0.1050, -1.2872e-04, 5.7923e-05, -0.0222]
-R3_R_IC = [-0.00113207, -0.0158688, 0.999873,
-           -0.9999999, -0.000486594, -0.00113994,
-           0.000504622, -0.999874, -0.0158682]
-R3_T_IC = [0.050166, 0.0474116, -0.0312415]
-R3_SIZE = (512, 640)
-R3_TIME_OFFSET = 0.006
+# The r3live profile of the accuracy gate (runtime/accuracy_gate.py, the
+# port of scripts/accuracy_gate.py): the published calibration of the
+# R3Live sequences (configs/r3live.yaml), images at image_scale 0.5 (1024
+# x 1280 -> 512 x 640) with the lens distortion, the camera-IMU extrinsic
+# and a 6 ms camera time offset.
+R3_TOPICS = gate.R3_TOPICS
 # The gate's per-seed ATE bound, registration share and --quick track bar
 # (accuracy_gate.py:454-509).
 REPLAY_MAX_ATE = 0.08
@@ -1331,98 +1389,31 @@ REPLAY_MIN_REGISTERED = 0.95
 REPLAY_MIN_TRACKS = 60.0
 
 
-class DeviceWorld(synthetic.SyntheticWorld):
-    """A world whose LiDAR rays are cast on `device` in float64
-    (`raycast_torch`), as the gate casts them on the accelerator when it
-    prebuilds its bags (accuracy_gate.py:66-77): the numpy raycast takes
-    about 0.2 s per 17600-ray sweep over this world's 142 rectangles."""
-
-    def __init__(self, rects, device):
-        super().__init__(rects)
-        self.device = device
-
-    def raycast(self, origins, dirs):
-        f = dict(dtype=torch.float64, device=self.device)
-        pts, hit = self.raycast_torch(torch.as_tensor(origins, **f),
-                                      torch.as_tensor(dirs, **f))
-        return pts.cpu().numpy(), hit.cpu().numpy(), None
-
-
 def r3live_bag(path: str, duration: float, seed: int, device="cuda",
                images: bool = True):
-    """The gate's r3live bag (accuracy_gate.py:132-206): its world, the
-    `standard` trajectory, a Livox cone of 160 x 110 directions at 10 Hz,
-    IMU at 200 Hz and distorted 512 x 640 RGB8 images at 10 Hz, rays cast
-    on `device`, written uncompressed with tests/rosbag_writer.py.  With
-    `images=False` the images are 8 x 8 and black: they carry only their
-    stamps, which cut the sweeps.  Returns (sim, seconds to simulate,
-    seconds to write, message counts)."""
-    from tests import rosbag_writer as rbw
-
-    world = DeviceWorld(synthetic.make_room(
-        half=12.0, height=4.0, boxes=20, seed=7, clear_radius=3.6,
-        panels=36), device)
-    traj = synthetic.Trajectory(amp=(1.6, 1.6, 0.2), freq=(0.22, 0.15, 0.35),
-                                yaw_amp=0.7, yaw_freq=0.25, rp_amp=0.06,
-                                start_still=4.5)
+    """The gate's r3live bag (`accuracy_gate.simulate_profile` and
+    `write_bag`): its world, the `standard` trajectory, a Livox cone of
+    160 x 110 directions at 10 Hz, IMU at 200 Hz and distorted 512 x 640
+    RGB8 images at 10 Hz, rays cast on `device`, written uncompressed.
+    With `images=False` the images are 8 x 8 and black: they carry only
+    their stamps, which cut the sweeps.  Returns (sim, seconds to
+    simulate, seconds to write, message counts)."""
     t0 = time.perf_counter()
-    sim = synthetic.simulate(
-        duration=duration, sweep_rate=10.0, image_rate=10.0,
-        image_size=R3_SIZE if images else (0, 0),
-        camera=tuple(np.asarray(R3_INTR_FULL) * 0.5),
-        dist_coeffs=R3_DIST, r_ic=np.asarray(R3_R_IC).reshape(3, 3),
-        t_ic=np.asarray(R3_T_IC), cam_time_offset=R3_TIME_OFFSET, seed=seed,
-        traj=traj, world=world,
-        dirs_phase=synthetic.lidar_directions_livox(160, 110), device=device)
+    sim = gate.simulate_profile(
+        duration=duration, image_rate=10.0, traj_kind="standard",
+        sensor="livox", calib=gate.R3_CALIB, seed=seed, device=device,
+        images=images)
     simulate_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    w = rbw.BagWriter(path)
-    for (t, acc, gyr) in sim.imu:
-        w.write_message(R3_TOPICS[1], "sensor_msgs/Imu", t,
-                        rbw.ser_imu(t, acc, gyr))
-    n_lidar = 0
-    for chunk in sim.lidar_chunks:
-        if chunk.shape[0] == 0:
-            continue
-        stamp = float(chunk[0, 3])
-        off_ns = np.round((chunk[:, 3] - stamp) * 1e9).astype(np.uint32)
-        n = chunk.shape[0]
-        w.write_message(R3_TOPICS[0], "livox_ros_driver/CustomMsg", stamp,
-                        rbw.ser_livox_custom(
-                            stamp, chunk[:, :3].astype(np.float32),
-                            np.zeros(n, np.uint8),
-                            (np.arange(n) % 6).astype(np.uint8), off_ns))
-        n_lidar += 1
-    for (t, img) in sim.images:
-        u8 = (np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
-              if images else np.zeros((8, 8, 3), np.uint8))
-        w.write_message(R3_TOPICS[2], "sensor_msgs/Image", t,
-                        rbw.ser_image_rgb8(t, u8))
-    w.close()
-    counts = {"imu": len(sim.imu), "lidar": n_lidar,
-              "image": len(sim.images)}
+    counts = gate.write_bag(path, sim, "livox")
     return sim, simulate_s, time.perf_counter() - t0, counts
 
 
 def r3live_cfg() -> LivoConfig:
-    """configs/r3live.yaml (read as data) with the gate's shape overrides
-    (accuracy_gate.py:260-277) and retry_wider_neighborhood (:294)."""
-    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "configs", "r3live.yaml"))
-    sh = cfg.shapes
-    sh.max_sweep_points = 8192
-    sh.max_frame_points = 4096
-    sh.max_keypoints = 1024
-    sh.max_imu_samples = 48
-    sh.map_capacity = 1 << 17
-    sh.color_capacity = 1 << 17
-    sh.color_registry = 1 << 18
-    sh.max_render_points = 1 << 13
-    cfg.adaptive_keypoint_density = True
-    cfg.cache_association = True
-    cfg.wire_quantization = True
-    cfg.retry_wider_neighborhood = True
-    return cfg
+    """configs/r3live.yaml (read as data) with the gate's shape overrides,
+    cache_association and wire_quantization on and
+    retry_wider_neighborhood (`accuracy_gate.profile_config`)."""
+    return gate.profile_config(gate.R3_YAML)
 
 
 class HostTimes(Spy):
@@ -1579,6 +1570,157 @@ def demo_phase(device: str = "cuda", duration: float = 10.0) -> dict:
                              f"{pose_lines} pose lines\n"
                              f"{proc.stderr[-3000:]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the accuracy gate
+# ---------------------------------------------------------------------------
+
+# The gate's new kernel shapes, each captured once in its profile: the
+# first IEKF update of a step (update 1) or the re-run of a weak solve
+# over the widened neighbourhood (update 2), from the given frame on, on
+# the dense keypoint grid or not (`dense`; None: either).  Frame ids count
+# from the first frame after the IMU's static init, about 3 s into a
+# profile; the motion starts at 4.5 s.  The frames chosen are about 8 s
+# in, two thirds through the 12 s quick profiles; the retry is the first
+# after the init frames (from 4.5 s on, weak solves re-run on most
+# frames; before it the still platform sees over 500 residuals).
+GATE_SHAPES = {
+    # the Ouster-16's keypoints on the ntu profile's map (20 Hz sweeps)
+    "ntu": dict(profile="ntu", entry="knn_plane_assoc", update=1,
+                frame=100, dense=None),
+    # the dense keypoint grid of adaptive_keypoint_density under hard
+    # motion
+    "dense": dict(profile="aggressive", entry="knn_plane_assoc", update=1,
+                  frame=50, dense=True),
+    # knn_plane_rows in the widened retry of the reference's
+    # re-associate-every-iteration mode
+    "rows_retry": dict(profile="r3live_nocache", entry="knn_plane_rows",
+                       update=2, frame=0, dense=None),
+}
+
+
+def gate_expected(rec: dict, cache_association: bool, backend: dict,
+                  n_verified: int) -> tuple:
+    """The launches per entry that the code calls for in one gate profile
+    (models/lio.py::iekf_update): with `cache_association`, one
+    `knn_plane_assoc` per IEKF update (a frame's first, and the re-run of
+    its weak solve) plus the backend's own (`backend`); without, one
+    `knn_plane_rows` per IEKF iteration, re-runs included.  The backend's
+    are 2 per BA run plus 9 per verified loop candidate.  Returns (the
+    expected launches, the backend's expected knn_plane_assoc)."""
+    want = dict.fromkeys(plane_fit.launches, 0)
+    if cache_association:
+        want["knn_plane_assoc"] = (rec["iekf_updates"]
+                                   + backend["knn_plane_assoc"])
+    else:
+        want["knn_plane_rows"] = rec["iekf_iterations"]
+    return want, 2 * rec.get("ba_runs", 0) + 9 * n_verified
+
+
+def rows_shape(name: str, cap: "Capture") -> dict:
+    """`knn_plane_rows` against its plain version at a captured shape, as
+    phase `fused_vs_plain` holds it, and timed."""
+    vmap, args, kw = cap.args_on(torch.device("cuda"))
+    res = {"shape": name, "q": args[0].shape[0], "m": kw["max_neighbors"],
+           "nb_voxels": kw["nb_voxels"], "n_valid": int(args[4].sum()),
+           "map_capacity": vmap.counts.shape[0],
+           "max_abs_err": check_fused_rows(vmap, args, kw)}
+    return time_fused(res, "knn_plane_rows", vmap, args, kw)
+
+
+def gate_phase(device="cuda") -> dict:
+    """The port's accuracy gate (runtime/accuracy_gate.py) in --quick
+    mode: every profile, 12 s, one seed, bags rendered on `device` into a
+    temporary directory and replayed there, with the launch counters set
+    to 0 just before and read just after.  Prints one line per profile
+    (the gate's record, the backend's launches, the dense-grid steps, the
+    expected launches) and one with the checks.  Fails when a quick check
+    fails, a profile's launches differ from `gate_expected` (any entry),
+    the backend's differ from its expected count, or a plain kNN runs on
+    CUDA.  Then holds each fused entry at the gate's new shapes
+    (`GATE_SHAPES`) against its plain version and times it."""
+    import tempfile
+
+    caps, min_neighbors, lines, bad = {}, {}, {}, []
+
+    def runner(name, kw):
+        cfg = gate.profile_config(kw["yaml_path"], kw["cache_association"],
+                                  kw["wire_quantization"])
+        init = cfg.odometry_options.init_num_frames
+        with StepWatch() as watch, cuda_knn_calls() as knn_calls, \
+                BackendLaunches() as backend, \
+                contextlib.ExitStack() as stack:
+            for shape, want in GATE_SHAPES.items():
+                if want["profile"] == name:
+                    min_neighbors[shape] = cfg.icp.min_number_neighbors
+                    caps[shape] = stack.enter_context(Capture(
+                        want["entry"], lambda a, k, w=want: (
+                            watch.update == w["update"]
+                            and watch.frame >= max(w["frame"], init)
+                            and w["dense"] in (None, watch.dense))))
+            rec = gate.run_profile(**kw)
+        n_verified = (backend.backend.n_verified
+                      if backend.backend is not None else 0)
+        want, want_backend = gate_expected(rec, kw["cache_association"],
+                                           backend.launches, n_verified)
+        line = {"phase": "gate", "profile": name, **rec,
+                "backend_launches": backend.launches,
+                "verified_candidates": n_verified,
+                "dense_steps": watch.dense_steps,
+                "expected_launches": want,
+                "plain_knn_calls_on_cuda": knn_calls.n}
+        emit(line)
+        lines[name] = line
+        if rec["launches"] != want:
+            bad.append(f"{name}: launches {rec['launches']}, expected {want}")
+        if backend.launches["knn_plane_assoc"] != want_backend:
+            bad.append(f"{name}: the backend launched knn_plane_assoc "
+                       f"{backend.launches['knn_plane_assoc']} times, "
+                       f"expected {want_backend}")
+        if knn_calls.n:
+            bad.append(f"{name}: {knn_calls.n} plain kNN calls on CUDA")
+        if not rec["frames"] <= rec["iekf_updates"] <= 2 * rec["frames"]:
+            bad.append(f"{name}: {rec['iekf_updates']} IEKF updates in "
+                       f"{rec['frames']} frames")
+        return rec
+
+    plane_fit.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        report = gate.run_gate(quick=True, cache=d, device=device,
+                               runner=runner)
+        seconds = time.perf_counter() - t0
+    launches = dict(plane_fit.launches)
+    checks = report["checks"]
+    out = {"phase": "gate", "checks": checks, "all_pass": report["all_pass"],
+           "seconds": seconds,
+           "replay_seconds": sum(v.get("wall_s", 0.0)
+                                 for v in report["profiles"].values()),
+           "launches": launches}
+    emit(out)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        bad.append(f"quick checks failed: {failed}")
+    missing = [k for k in GATE_SHAPES if caps.get(k) is None
+               or caps[k].args is None]
+    if missing:
+        bad.append(f"no call captured at the shapes {missing}")
+    if bad:
+        raise AssertionError("gate phase: " + "; ".join(bad))
+    shapes = {}
+    for name, want in GATE_SHAPES.items():
+        if want["entry"] == "knn_plane_rows":
+            res = rows_shape(name, caps[name])
+        else:
+            res = assoc_shape(name, caps[name], min_neighbors[name], True)
+        res["profile"] = want["profile"]
+        res["launches"] = lines[want["profile"]]["launches"][want["entry"]]
+        shapes[name] = res
+    caps.clear()
+    emit({"phase": "fused_vs_plain", "gate": shapes})
+    return {"profiles": lines, "launches": launches, "shapes": shapes,
+            "report": report}
 
 
 # ---------------------------------------------------------------------------
@@ -1892,30 +2034,25 @@ def two_ranks(log, cfg, ref, single_size: int, n_warm: int,
     return out, first["capture"]
 
 
-def shard_shape(name: str, cap: "Capture", min_neighbors: int,
+def assoc_shape(name: str, cap: "Capture", min_neighbors: int,
                 flat_floor: bool) -> dict:
-    """(c) `knn_plane_assoc` against its plain version at a shard shape
-    (a captured map and rows), timed as the other shapes are; a2d held on
-    the rows not flat to rounding (`FLAT_FLOOR`) where `flat_floor`."""
+    """`knn_plane_assoc` against its plain version at a captured shape (a
+    captured map and rows), timed as the other shapes are; the normal
+    held on the rows with `min_neighbors` neighbours (at least a tenth of
+    all rows), a2d on those not flat to rounding (`FLAT_FLOOR`) where
+    `flat_floor`."""
     vmap, (world, valid, thr), kw = cap.args_on(torch.device("cuda"))
     pair = fused_assoc_pair(vmap, world, valid, thr, kw)
     rows = pair[4] >= min_neighbors
     firm = rows & (flatness(vmap, world, thr, kw)[:rows.shape[0]]
                    >= FLAT_FLOOR) if flat_floor else rows
     res = {"shape": name, "q": world.shape[0], "m": kw["max_neighbors"],
-           "n_valid": int(valid.sum()), "map_capacity": vmap.counts.shape[0],
+           "nb_voxels": kw["nb_voxels"], "n_valid": int(valid.sum()),
+           "map_capacity": vmap.counts.shape[0],
            "rows_held": int(rows.sum()), "rows_a2d_held": int(firm.sum())}
     res["max_abs_err"] = hold_assoc(kw, pair, rows, firm,
                                     math.ceil(0.1 * rows.shape[0]))
-    res["ms"] = graph_ms(lambda: plane_fit.knn_plane_assoc_cuda(
-        vmap, world, valid, thr, **kw))
-    res["call_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_cuda(
-        vmap, world, valid, thr, **kw))
-    res["plain_ms"] = time_ms(lambda: plane_fit.knn_plane_assoc_plain(
-        vmap, world, valid, thr, **kw), iters=30, warmup=3)
-    res["bound_ms"], res["bound_by"] = fused_bound_ms(
-        vmap, world, valid, thr, kw, "knn_plane_assoc")
-    return res
+    return time_fused(res, "knn_plane_assoc", vmap, (world, valid, thr), kw)
 
 
 def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
@@ -1953,9 +2090,9 @@ def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
     k4_cap.args = k4_args
     if k4_cap.args is None or ba_cap.args is None:
         raise AssertionError("no shard-shape association was captured")
-    shapes = {"k4": shard_shape("iekf_k4", k4_cap,
+    shapes = {"k4": assoc_shape("iekf_k4", k4_cap,
                                 cfg.icp.min_number_neighbors, False),
-              "ba": shard_shape("ba_w", ba_cap, 8, True)}
+              "ba": assoc_shape("ba_w", ba_cap, 8, True)}
     emit({"phase": "fused_vs_plain", "sharded": shapes})
     return {"a": a, "b": b, "shapes": shapes}
 
@@ -1963,7 +2100,8 @@ def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["profile", "livo", "longrun",
-                                           "resume", "replay", "sharded"],
+                                           "resume", "replay", "sharded",
+                                           "gate"],
                         help="run only the device and this phase")
     parser.add_argument("--sharded-rank", type=int,
                         help=argparse.SUPPRESS)   # a rank of phase sharded
@@ -1984,6 +2122,11 @@ def main() -> int:
     if only == "replay":
         replay_phase()
         demo_phase()
+        print(smi, flush=True)
+        return 0
+    if only == "gate":
+        kernels.build("plane_fit")
+        gate_phase()
         print(smi, flush=True)
         return 0
     if only in ("livo", "longrun", "resume"):
@@ -2040,6 +2183,7 @@ def main() -> int:
     resume_phase(lsim, bench_livo_cfg())
     replay = replay_phase()
     demo_phase()
+    gated = gate_phase()
 
     summary = []
     for name, cache in (("knn_plane_assoc", True), ("knn_plane_rows", False),
@@ -2052,6 +2196,7 @@ def main() -> int:
             "launches_livo": livo["launches"][name],
             "launches_backend": longrun["launches_backend"][name],
             "launches_replay": replay["launches"][name],
+            "launches_gate": gated["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
@@ -2063,6 +2208,10 @@ def main() -> int:
         "two_ranks_gloo": sharded["b"]["launches_per_rank"],
         "ba": sharded["a"]["ba"]["launches"]}
     summary[0]["sharded_shapes"] = sharded["shapes"]
+    for entry in summary[:2]:
+        entry["gate_shapes"] = {
+            k: v for k, v in gated["shapes"].items()
+            if GATE_SHAPES[k]["entry"] == entry["name"]}
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

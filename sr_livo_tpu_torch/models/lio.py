@@ -36,6 +36,13 @@ class IekfSummary(NamedTuple):
     iterations: torch.Tensor     # () int32
 
 
+# IEKF updates of either engine (counted as each starts, before its
+# association) and their iterations (counted by `iekf_iterations`, where
+# the loop already reads its flags back); host integers.  Callers read
+# differences.
+counts = {"updates": 0, "iterations": 0}
+
+
 def _lam(weight_alpha: float, weight_neighborhood: float):
     lam_sum = abs(weight_alpha) + abs(weight_neighborhood)
     return abs(weight_alpha) / lam_sum, abs(weight_neighborhood) / lam_sum
@@ -160,6 +167,7 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
     Each iteration reads two flags back to the host to decide whether to
     go on.  Returns (state, IekfSummary).
     """
+    counts["updates"] += 1
     pred = state
     if seed_q is not None:
         state = state._replace(q=seed_q, p=seed_p)
@@ -292,6 +300,7 @@ def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
         cov_final = torch.where(apply, j_new @ (cov - k_x @ cov) @ j_new.T,
                                 cov_final)
         it += 1
+        counts["iterations"] += 1
         n_res = num
         ok, conv = (bool(v) for v in torch.stack([enough, converged]).tolist())
         if not (it < max_iters + 1 and not conv and ok):

@@ -77,8 +77,21 @@ class ColorMap(NamedTuple):
     def n_rgb(self):
         return self.reg[:, C_NRGB].to(torch.int32)
 
+    @property
+    def obs_dist(self):
+        return self.reg[:, C_DIST]
 
+    @property
+    def last_obs_time(self):
+        return self.reg[:, C_TIME]
 
+    @property
+    def img_vel(self):
+        return self.reg[:, C_VEL]
+
+    @property
+    def outlier_count(self):
+        return self.reg[:, C_OUT].to(torch.int32)
 
     @property
     def reg_valid(self):

@@ -19,6 +19,15 @@ from sr_livo_tpu_torch.models.eskf import ImuStates
 from sr_livo_tpu_torch.utils import lie
 
 
+def make_point_alpha(t_rel: torch.Tensor, duration) -> torch.Tensor:
+    """Per-point alpha time in [0, 1) (makePointTimestamp,
+    lioOptimization.cpp:786-819).  `t_rel` is seconds from sweep begin."""
+    alpha = t_rel / torch.clamp(torch.as_tensor(duration, dtype=t_rel.dtype,
+                                                device=t_rel.device),
+                                min=1e-9)
+    return torch.clamp(alpha, 0.0, 1.0 - 1e-5)
+
+
 def undistort_constant(raw_pts: torch.Tensor, t_rel: torch.Tensor,
                        imu_states: ImuStates,
                        r_il: torch.Tensor, t_il: torch.Tensor) -> torch.Tensor:

@@ -632,6 +632,7 @@ class ShardedLioEngine:
         with `cache_association`, else `knn_plane_rows` per iteration),
         the global keypoint-order residual cap, and one packed 43-float
         psum of the normal equations per iteration."""
+        lio.counts["updates"] += 1
         cfg = self.cfg
         icp = cfg.icp
         sh = cfg.shapes

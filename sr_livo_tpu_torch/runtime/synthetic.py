@@ -105,7 +105,13 @@ def make_room(half: float = 8.0, height: float = 3.0,
 
 
 class SyntheticWorld:
-    def __init__(self, rects: Optional[List[Rect]] = None):
+    def __init__(self, rects: Optional[List[Rect]] = None, device=None):
+        """With `device` set, `raycast` casts the LiDAR rays in float64 on
+        that device (`raycast_torch`; the counterpart of the JAX package's
+        `use_jax=True` raycaster): the numpy raycast takes about 0.2 s per
+        17600-ray sweep over the gate's 142 rectangles.  Without, it runs
+        in numpy, as the JAX package's does."""
+        self.device = None if device is None else resolve_device(device)
         self.rects = rects if rects is not None else make_room()
         self._centers = np.stack([r.center for r in self.rects])
         self._us = np.stack([r.u for r in self.rects])
@@ -123,7 +129,13 @@ class SyntheticWorld:
         intermediates:
           uu = ((o + t d) - c) . u / |u|^2
              = (o.u - c.u + t (d.u)) / |u|^2
+        On a `device`, t is None (the simulator does not read it).
         """
+        if self.device is not None:
+            f = dict(dtype=torch.float64, device=self.device)
+            pts, hit = self.raycast_torch(torch.as_tensor(origins, **f),
+                                          torch.as_tensor(dirs, **f))
+            return pts.cpu().numpy(), hit.cpu().numpy(), None
         ns_t = self._ns.T                              # (3, R)
         denom = dirs @ ns_t                            # (N, R)
         denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)

@@ -126,6 +126,29 @@ def test_update_rgb_matches_jax(maps):
                                    atol=1e-4, rtol=0)
 
 
+ACCESSORS = ("pos", "rgb", "cov_rgb", "n_rgb", "obs_dist", "last_obs_time",
+             "img_vel", "outlier_count", "reg_valid")
+
+
+@pytest.mark.parametrize("name", ACCESSORS)
+def test_column_accessors_match_jax(maps, name):
+    """Every column view of the registry, values and dtype, on the
+    inserted map's registry with each column set: random observation
+    distances, times, image velocities and outlier counts."""
+    jm, tm = maps
+    rng = np.random.RandomState(21)
+    reg = np.asarray(jm.reg).copy()
+    n = reg.shape[0]
+    reg[:, tcm.C_DIST] = rng.uniform(1.0, 9.0, n)
+    reg[:, tcm.C_TIME] = rng.uniform(0.0, 60.0, n)
+    reg[:, tcm.C_VEL] = rng.uniform(-40.0, 40.0, (n, 2))
+    reg[:, tcm.C_OUT] = rng.randint(0, 9, n)
+    want = np.asarray(getattr(jm._replace(reg=jnp.asarray(reg)), name))
+    got = getattr(tm._replace(reg=torch.as_tensor(reg)), name).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
 def test_render_and_select_match_jax(maps):
     jm, tm = maps
     q_cw, t_cw, t_wc = _camera()

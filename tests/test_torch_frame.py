@@ -146,3 +146,14 @@ def test_transform_to_world_matches_jax():
     t = tframe.transform_to_world(*(torch.as_tensor(a)
                                     for a in (raw, q, p, r_il, t_il)))
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("duration", [0.1, 0.0, np.float32(0.05)])
+def test_make_point_alpha_matches_jax(duration):
+    """Alpha times bit for bit, below 0, past the sweep's end and at a
+    zero duration."""
+    t_rel = RNG.uniform(-0.02, 0.12, 1000).astype(np.float32)
+    j = jframe.make_point_alpha(jnp.asarray(t_rel), duration)
+    t = tframe.make_point_alpha(torch.as_tensor(t_rel), duration)
+    assert t.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))

@@ -1,7 +1,8 @@
 """The port stands alone: `sr_livo_tpu_torch` and `chip_smoke.py` import
-neither JAX nor anything of the JAX package, nor use the JAX package's
-native library or build anything under `native/`, and `chip_smoke.py`
-fails (printing no result) where there is no GPU or no port beside it.
+neither JAX nor anything of the JAX package or of the tests, nor use the
+JAX package's native library or build anything under `native/`, and
+`chip_smoke.py` fails (printing no result) where there is no GPU or no
+port beside it.
 The rank worker of the multi-device tests (tests/torch_shard_worker.py),
 the card's collectives probe (tests/torch_gloo_probe.py) and the
 card-only test files import no JAX either: they run in processes and on
@@ -60,6 +61,8 @@ NATIVE_DIR_USE = [
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert "sr_livo_tpu_torch.pipeline" in mods and len(mods) >= 20
+    assert {"sr_livo_tpu_torch.runtime.accuracy_gate",
+            "sr_livo_tpu_torch.runtime.bag_writer"} <= set(mods)
     code = "\n".join([
         "import sys, importlib",
         "sys.modules['jax'] = None",
@@ -87,6 +90,19 @@ def test_source_has_no_jax_import(path):
     for pat in FORBIDDEN:
         hit = pat.search(src)
         assert hit is None, f"{path}: {hit.group(0).strip()!r}"
+
+
+# The package and chip_smoke.py use nothing of the repository's tests
+# (the accuracy gate has its own bag writer).
+TESTS_IMPORT = re.compile(r"^\s*(from\s+tests[\s.]|import\s+tests\b)", re.M)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_nothing_of_the_tests(path):
+    with open(path) as f:
+        hit = TESTS_IMPORT.search(f.read())
+    assert hit is None, f"{path}: {hit.group(0).strip()!r}"
 
 
 @pytest.mark.parametrize("path", _sources((".py", ".cpp", ".cu", ".cuh")),

@@ -120,6 +120,26 @@ def test_iekf_update_matches_jax(scene, case, monkeypatch):
     assert float(torch.linalg.norm(t_out.p)) < 0.02
 
 
+@pytest.mark.parametrize("case", ["rows_jnp", "assoc_chunked"])
+def test_counts_follow_the_updates(scene, case, monkeypatch):
+    """`lio.counts` gains one update per call, counted before its first
+    association, and its iterations."""
+    before = dict(tlio.counts)
+    seen = []
+    for name in ("knn_plane_assoc", "knn_plane_rows"):
+        def spy(*args, entry=getattr(plane_fit, name), **kw):
+            seen.append(tlio.counts["updates"] - before["updates"])
+            return entry(*args, **kw)
+        monkeypatch.setattr(plane_fit, name, spy)
+    _, summary = _run_torch(scene, case)
+    assert int(summary.iterations) > 1
+    assert seen == [1] * (1 if CASES[case]["cache_association"]
+                          else int(summary.iterations))
+    assert tlio.counts == {
+        "updates": before["updates"] + 1,
+        "iterations": before["iterations"] + int(summary.iterations)}
+
+
 def test_cap_residuals_prefix_matches_jax():
     good = RNG.rand(700) < 0.8
     h_x = RNG.randn(700, 6).astype(np.float32)

@@ -9,7 +9,9 @@ hold the bounds, this script reports the measured values for PERF.md.
 Sections (all by default): lie, eskf, frame, voxel_map, host, plane,
 knn_plane, lio, odometry, pipeline, image, ransac, color_map, camera,
 vision, long_run, ingest, retry, sharded (the multi-device slice: 4 gloo
-ranks against JAX's 4-device mesh, about a minute).
+ranks against JAX's 4-device mesh, about a minute), gate (the accuracy
+gate's bags and configurations against scripts/accuracy_gate.py and an
+8 s ntu-profile bag through both packages, about a minute).
 """
 import tests.conftest  # noqa: F401  (JAX on the CPU before anything runs)
 
@@ -19,6 +21,7 @@ import torch
 
 from sr_livo_tpu_torch import convert
 
+from tests import test_torch_accuracy_gate as AG
 from tests import test_torch_ba as BA
 from tests import test_torch_backend as BE
 from tests import test_torch_camera as C
@@ -424,6 +427,70 @@ def retry_rows():
         f"{tt[worst]:.2f} s, on {n_res[worst]} residuals; ATE port "
         f"{ate[0]:.6f} m, JAX "
         f"{ate[1]:.6f} m; positions)", [(tpos, jpos)])
+
+
+def gate_rows():
+    """The accuracy gate: bag bytes and configurations against the JAX
+    script and the test fixture, and the ntu profile's Ouster bag through
+    both packages (test_torch_accuracy_gate)."""
+    import dataclasses
+
+    from sr_livo_tpu import config as jconfig
+
+    def as_array(data: bytes):
+        return np.frombuffer(data, np.uint8)
+    jgate = AG.jgate.__wrapped__()
+    rng = np.random.RandomState(3)
+    pairs = []
+    for name in ("ser_header", "ser_imu", "ser_livox_custom",
+                 "ser_pointcloud2_ouster", "ser_image_rgb8",
+                 "ser_compressed_image"):
+        args = AG._serializer_args(name, rng)
+        pairs.append((as_array(getattr(AG.tbw, name)(*args)),
+                      as_array(getattr(AG.jbw, name)(*args))))
+    row("bag_writer serializers (Imu, Livox, Ouster PointCloud2, rgb8, "
+        "JPEG) vs tests/rosbag_writer.py; bytes", pairs)
+    src = AG.source_bag.__wrapped__(_TmpDirs())
+    pairs = []
+    for build in (lambda m, b: m.build_dropout_bag(b, AG.tgate.R3_TOPICS[2],
+                                                   (1.05, 1.95)),
+                  lambda m, b: m.build_compressed_bag(b,
+                                                      AG.tgate.R3_TOPICS[2])):
+        pairs.append((as_array(open(build(AG.tgate, src[1]), "rb").read()),
+                      as_array(open(build(jgate, src[0]), "rb").read())))
+    row("accuracy_gate.build_dropout_bag, build_compressed_bag vs "
+        "scripts/accuracy_gate.py; bytes", pairs)
+    same = []
+    for yaml_path in (AG.tgate.R3_YAML, AG.tgate.NTU_YAML):
+        for cache, wire in ((True, True), (True, False), (False, True)):
+            jcfg = jconfig.load_config(yaml_path)
+            jgate._shape_overrides(jcfg)
+            jcfg.cache_association, jcfg.wire_quantization = cache, wire
+            jcfg.retry_wider_neighborhood = True
+            same.append(dataclasses.asdict(jcfg) == dataclasses.asdict(
+                AG.tgate.profile_config(yaml_path, cache, wire)))
+    row(f"accuracy_gate.profile_config (r3live, ntu x 3 ablations: "
+        f"{sum(same)} of {len(same)} equal)",
+        [(np.array(same), np.ones(len(same), bool))])
+    sim, jp, tp, frames, _steps, _path = AG.ntu_replays.__wrapped__(
+        _TmpDirs())
+    lockstep_row(f"{AG.NTU_DURATION:g} s ntu replay", frames)
+    jr, tr = jp.records, tp.records
+    n_fill = sum(not r.rendering for r in tr)
+    row(f"drivers.replay_bag, {AG.NTU_DURATION:g} s ntu-profile Ouster bag "
+        f"at 20 Hz ({len(tr)} / {len(jr)} frames, {n_fill} gap-fill): "
+        f"frame stamps, rendering flags, success",
+        [(np.array([r.time for r in tr]), np.array([r.time for r in jr])),
+         (np.array([r.rendering for r in tr]),
+          np.array([r.rendering for r in jr])),
+         (np.array([r.success for r in tr]),
+          np.array([r.success for r in jr]))])
+    tt, tpos, _ = tp.trajectory()
+    jt, jpos, _ = jp.trajectory()
+    ate = [RP.tum.ate_rmse(t, p, sim.gt_times, sim.gt_pos, align=True)
+           for t, p in ((tt, tpos), (jt, jpos))]
+    row(f"drivers.replay_bag, the ntu bag closed loop (ATE port "
+        f"{ate[0]:.6f} m, JAX {ate[1]:.6f} m; positions)", [(tpos, jpos)])
 
 
 def image_rows():
@@ -885,7 +952,7 @@ SECTIONS = (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
             plane_rows, knn_plane_rows, lio_rows, odometry_rows,
             pipeline_rows, image_rows, ransac_rows, color_map_rows,
             camera_rows, vision_rows, long_run_rows, ingest_rows,
-            retry_rows, sharded_rows)
+            retry_rows, sharded_rows, gate_rows)
 
 
 def main(argv):
