@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only resume    # device + resume phases only
     python3 chip_smoke.py --only replay    # device + replay + demo phases
     python3 chip_smoke.py --only sharded   # device + sharded phase
+    python3 chip_smoke.py --only scaling   # device + scaling (+ its shapes)
     python3 chip_smoke.py --only gate      # device + gate (+ its shapes)
 
 Phases, each printing one JSON line:
@@ -51,6 +52,24 @@ Phases, each printing one JSON line:
      its plain version and timed at the two shard shapes: the IEKF's
      K4 x 20 on rank 0's local table (captured in (b)) and the BA's
      W x 20 (captured in (a); a2d there on rows not flat to rounding);
+  6c. scaling — the port's scaling bench (`runtime/scaling_bench.py`, the
+     port of scripts/scaling_bench.py) on `cuda`, its record on one line
+     and in output/SCALING_torch.json: the single-device step and the
+     per-rank programs of 1 to 8 ranks (strong, and weak up to 8x) as
+     worlds of one with the n-rank budgets, round-robin; the replicated
+     remainder; walls of 1, 2 and 8 ranks sharing the card over gloo and
+     the weak-8 routing overflow over 8 of them; the stage profiles; the
+     saturating weak point (8x on one device, 64x split over 8 ranks);
+     the collective model on the card's NVLink and a measured NCCL
+     latency.  It checks every key of the JAX script's record, every
+     time finite and positive, no overflow over the 8 ranks, the strong-1
+     proxy within 2e-3 m of the single-device trajectory on the same
+     sweeps, `knn_plane_assoc` once per IEKF update in every engine (the
+     ranks' too) and no other entry, and the collectives of a steady
+     sweep as modeled.  Then `knn_plane_assoc` against its plain version,
+     timed and bounded, at the three new shapes (`SCALING_SHAPES`: the
+     single device's 8192 keypoints on 2^19 slots, the weak-8 per-rank
+     K4 ~2.1K, the saturating per-rank K4 ~16.4K on 2^20 slots);
   7. livo    — the full LIVO loop (LivoPipeline with a VisionModule) at
      bench.py's configuration (512 x 640 images rendered on the card, 300
      tracks, the default colored-map shapes) on a 20 s run: warm-up as in
@@ -129,7 +148,8 @@ this run's inputs; `launches`, `launches_livo`, `launches_backend`,
 `launches_replay`, `launches_gate`: the launches in the slice and livo
 runs, the backend's own in the longrun run, those of the bag replay and
 of the gate's profiles; `gate_shapes`: phase `gate`'s;
-`launches_sharded` and `sharded_shapes`: phase `sharded`'s).  Then it
+`launches_sharded` and `sharded_shapes`: phase `sharded`'s;
+`launches_scaling` and `scaling_shapes`: phase `scaling`'s).  Then it
 prints the `{"kernels": [...]}` summary, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase raises and the script
 exits non-zero without that last line.
@@ -168,6 +188,7 @@ from sr_livo_tpu_torch.parallel import pose_graph, sharded_lio  # noqa: E402
 from sr_livo_tpu_torch.pipeline import LivoPipeline  # noqa: E402
 from sr_livo_tpu_torch.runtime import accuracy_gate as gate  # noqa: E402
 from sr_livo_tpu_torch.runtime import drivers, native  # noqa: E402
+from sr_livo_tpu_torch.runtime import scaling_bench  # noqa: E402
 from sr_livo_tpu_torch.runtime import synthetic, tum  # noqa: E402
 from sr_livo_tpu_torch.utils import lie  # noqa: E402
 from sr_livo_tpu_torch.utils.profiling import StageTimers  # noqa: E402
@@ -2097,11 +2118,173 @@ def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
     return {"a": a, "b": b, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# Phase scaling: the port's scaling bench on the card
+# ---------------------------------------------------------------------------
+
+# The JAX script's record keys (scripts/scaling_bench.py:413-451, its
+# `ici_bw_gbs` renamed `link_bw_gbs`), which the port's record must carry.
+SCALING_KEYS = {
+    None: ("backend", "physical_cores", "step_ms_single_chip",
+           "step_ms_pershard", "step_ms_pershard_weak",
+           "step_ms_virtual_wall", "route_overflow_real_mesh_weak8",
+           "replicated_ms", "replicated_fraction", "comm_model",
+           "efficiency_strong", "efficiency_weak", "stage_profile_weak8_ms",
+           "stage_profile_strong8_ms", "saturating_weak_8", "note"),
+    "comm_model": ("link_bw_gbs", "latency_per_collective_us",
+                   "comm_ms_strong_8"),
+    "saturating_weak_8": ("per_chip_workload", "step_ms_single_chip_8x",
+                          "step_ms_pershard", "comm_ms", "efficiency"),
+}
+# The kernel's new shapes: the run (a `run_bench` runner name) whose
+# `knn_plane_assoc` call is captured, and which call: the last step of the
+# run's untimed first pass (one association a step; 8 sweeps, 4 in the
+# saturating per-rank run).
+SCALING_SHAPES = {
+    "single_8x": dict(run="single8x", call=7),        # Q 8192, 2^19 slots
+    "pershard_weak8": dict(run="weak8", call=7),      # K4 ~ 2.1K
+    "pershard_saturating": dict(run="weak64", call=3),  # K4 ~ 16.4K, 2^20
+}
+
+
+def nth_call(k: int):
+    """A Capture `want` that takes the k-th call (0-based)."""
+    seen = [0]
+
+    def want(args, kw):
+        seen[0] += 1
+        return seen[0] == k + 1
+    return want
+
+
+def _engine_counts(launches: dict):
+    """(name, counts) of every engine of the record's `launches` (a rank
+    run is a list, one counts dict per rank)."""
+    for name, c in launches.items():
+        for i, one in enumerate(c if isinstance(c, list) else [c]):
+            yield (f"{name}[{i}]" if isinstance(c, list) else name), one
+
+
+def scaling_checks(rec: dict, launched: dict) -> list:
+    """The phase's bars: every JAX key; every time finite and positive
+    (a stage difference finite: noise can put a prefix below the one
+    before it); no routing overflow over 8 real ranks; the strong-1 proxy
+    on the single-device trajectory within SHARDED_POS; in every engine
+    `knn_plane_assoc` once per IEKF update and no other entry; the
+    parent's launches the sum of its engines'; the collectives of a
+    steady sweep as modeled."""
+    fails = [f"missing {k!r} in {sec or 'the record'}"
+             for sec, keys in SCALING_KEYS.items()
+             for k in keys if k not in (rec[sec] if sec else rec)]
+    sat = rec["saturating_weak_8"]
+    times = ([rec["step_ms_single_chip"], rec["replicated_ms"],
+              rec["comm_model"]["comm_ms_strong_8"],
+              rec["comm_model"]["latency_per_collective_us"],
+              sat["step_ms_single_chip_8x"], sat["step_ms_pershard"],
+              sat["comm_ms"]]
+             + [t for k in ("step_ms_pershard", "step_ms_pershard_weak",
+                            "step_ms_virtual_wall")
+                for t in rec[k].values()]
+             + [rec[k]["prefix_total_ms"] for k in (
+                 "stage_profile_weak8_ms", "stage_profile_strong8_ms")])
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        fails.append(f"a time is not finite and positive: {times}")
+    stages = [v for k in ("stage_profile_weak8_ms", "stage_profile_strong8_ms")
+              for v in rec[k].values()]
+    if not all(math.isfinite(t) for t in stages):
+        fails.append("a stage time is not finite")
+    if sorted(rec["step_ms_virtual_wall"]) != sorted(scaling_bench.WALL_N):
+        fails.append(f"walls at {sorted(rec['step_ms_virtual_wall'])}")
+    ovf = rec["route_overflow_real_mesh_weak8"]
+    if not ovf or any(ovf) or len(rec["launches"]["overflow8"]) != 8:
+        fails.append(f"route_overflow over 8 real ranks: {ovf}")
+    if not rec["strong1_vs_single_max_gap_m"] <= SHARDED_POS:
+        fails.append(f"strong1 proxy {rec['strong1_vs_single_max_gap_m']} m "
+                     "from the single-device trajectory")
+    parent = dict.fromkeys(launched, 0)
+    for name, c in _engine_counts(rec["launches"]):
+        others = {k: v for k, v in c.items()
+                  if k not in ("knn_plane_assoc", "iekf_updates") and v}
+        if (c["knn_plane_assoc"] != c["iekf_updates"]
+                or not c["iekf_updates"] or others):
+            fails.append(f"{name}: {c}")
+        if not (name.startswith("wall") or name.startswith("overflow")):
+            for k in parent:
+                parent[k] += c[k]
+    if parent != launched:
+        fails.append(f"the run launched {launched}, its engines {parent}")
+    counted = dict(rec["comm_model"]["collectives_counted_strong8_steady"])
+    counted.pop("iekf_iterations")
+    if counted != rec["comm_model"]["collectives_modeled"]:
+        fails.append(f"collectives counted {counted}, modeled "
+                     f"{rec['comm_model']['collectives_modeled']}")
+    return fails
+
+
+def scaling_phase() -> dict:
+    """The port's scaling bench on the card (scaling_bench.run_bench, its
+    record written to output/SCALING_torch.json), with the launch counters
+    set to 0 just before and read just after and each new shape's
+    `knn_plane_assoc` call captured; then the kernel against its plain
+    version, timed and bounded, at those shapes."""
+    caps = {name: Capture("knn_plane_assoc", nth_call(s["call"]))
+            for name, s in SCALING_SHAPES.items()}
+    by_run = {s["run"]: caps[name] for name, s in SCALING_SHAPES.items()}
+
+    def runner(name, fn):
+        if name not in by_run:
+            return fn()
+        with by_run[name]:
+            return fn()
+
+    t0 = time.perf_counter()
+    plane_fit.reset_launches()
+    updates0 = lio.counts["updates"]
+    with cuda_knn_calls() as knn_calls:
+        rec = scaling_bench.run_bench("cuda", runner=runner)
+    launched = dict(plane_fit.launches,
+                    iekf_updates=lio.counts["updates"] - updates0)
+    seconds = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(scaling_bench.DEFAULT_OUT), exist_ok=True)
+    with open(scaling_bench.DEFAULT_OUT, "w") as f:
+        json.dump(rec, f, indent=2)
+    emit({"phase": "scaling", "seconds": seconds, "launched": launched,
+          "plain_knn_calls_on_cuda": knn_calls.n, **rec})
+    fails = scaling_checks(rec, launched)
+    if knn_calls.n:
+        fails.append(f"plain kNN called {knn_calls.n} times on the card")
+    missing = [name for name, cap in caps.items() if cap.args is None]
+    if missing:
+        fails.append(f"no call captured at the shapes {missing}")
+    if fails:
+        raise AssertionError("scaling: " + "; ".join(fails))
+    # a2d on the rows not flat to rounding (FLAT_FLOOR), as at the BA
+    # shape: among the 8K-16K rows of these shapes some patches are thin
+    # enough that a2d differs between float32 summation orders
+    min_nb = scaling_bench.base_cfg().icp.min_number_neighbors
+    shapes = {name: assoc_shape(name, cap, min_nb, True)
+              for name, cap in caps.items()}
+    for name, cap in caps.items():
+        # the launch with no valid row: what is left is every block's
+        # count of the valid prefix over all Q rows (plane_fit.cu's
+        # knn_plane_assoc_kernel) and the zeroed outputs
+        vmap, (world, valid, thr), kw = cap.args_on(torch.device("cuda"))
+        none = torch.zeros_like(valid)
+        shapes[name]["prefix_only_ms"] = graph_ms(
+            lambda: plane_fit.knn_plane_assoc_cuda(vmap, world, none, thr,
+                                                   **kw))
+        del vmap
+    caps.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_vs_plain", "scaling": shapes})
+    return {"record": rec, "launched": launched, "shapes": shapes}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["profile", "livo", "longrun",
                                            "resume", "replay", "sharded",
-                                           "gate"],
+                                           "scaling", "gate"],
                         help="run only the device and this phase")
     parser.add_argument("--sharded-rank", type=int,
                         help=argparse.SUPPRESS)   # a rank of phase sharded
@@ -2127,6 +2310,11 @@ def main() -> int:
     if only == "gate":
         kernels.build("plane_fit")
         gate_phase()
+        print(smi, flush=True)
+        return 0
+    if only == "scaling":
+        kernels.build("plane_fit")
+        scaling_phase()
         print(smi, flush=True)
         return 0
     if only in ("livo", "longrun", "resume"):
@@ -2174,6 +2362,7 @@ def main() -> int:
           **{k: results[k] for k in ("knn_plane_assoc", "knn_plane_rows")}})
     profile_phase(sim)
     sharded = sharded_phase(sim, bench_lio_cfg(cache_association=True))
+    scaling = scaling_phase()
     lsim, render_ms = livo_sim()
     livo = livo_phase(lsim, render_ms, bench_livo_cfg())
     longrun, caps = longrun_phase(lsim, bench_livo_cfg())
@@ -2208,6 +2397,8 @@ def main() -> int:
         "two_ranks_gloo": sharded["b"]["launches_per_rank"],
         "ba": sharded["a"]["ba"]["launches"]}
     summary[0]["sharded_shapes"] = sharded["shapes"]
+    summary[0]["launches_scaling"] = scaling["launched"]["knn_plane_assoc"]
+    summary[0]["scaling_shapes"] = scaling["shapes"]
     for entry in summary[:2]:
         entry["gate_shapes"] = {
             k: v for k, v in gated["shapes"].items()

@@ -1,5 +1,6 @@
 """The port stands alone: `sr_livo_tpu_torch` and `chip_smoke.py` import
-neither JAX nor anything of the JAX package or of the tests, nor use the
+neither JAX nor anything of the JAX package, of `scripts/` or of the
+tests, carry none of the JAX scripts' TPU constants, nor use the
 JAX package's native library or build anything under `native/`, and
 `chip_smoke.py` fails (printing no result) where there is no GPU or no
 port beside it.
@@ -26,6 +27,7 @@ FORBIDDEN = [
     re.compile(r"^\s*from\s+sr_livo_tpu[\s.]", re.M),
     re.compile(r"^\s*import\s+sr_livo_tpu(\s|\.|$|,)", re.M),
     re.compile(r"^\s*from\s+\.\.*\s+import\s+.*\bjax\b", re.M),
+    re.compile(r"^\s*(from\s+scripts[\s.]|import\s+scripts\b)", re.M),
 ]
 
 
@@ -62,7 +64,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert "sr_livo_tpu_torch.pipeline" in mods and len(mods) >= 20
     assert {"sr_livo_tpu_torch.runtime.accuracy_gate",
-            "sr_livo_tpu_torch.runtime.bag_writer"} <= set(mods)
+            "sr_livo_tpu_torch.runtime.bag_writer",
+            "sr_livo_tpu_torch.runtime.scaling_bench",
+            "sr_livo_tpu_torch.runtime.live_viewer"} <= set(mods)
     code = "\n".join([
         "import sys, importlib",
         "sys.modules['jax'] = None",
@@ -72,7 +76,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         f"for m in {mods!r} + ['chip_smoke', 'tests.torch_shard_worker',",
         "               'tests.torch_gloo_probe']:",
         "    importlib.import_module(m)",
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'sr_livo_tpu.'))",
+        "assert not any(k in ('jax', 'scripts')",
+        "               or k.startswith(('jax.', 'sr_livo_tpu.', 'scripts.'))",
         "               for k, v in sys.modules.items() if v is not None)",
         "print('ok')",
     ])
@@ -90,6 +95,20 @@ def test_source_has_no_jax_import(path):
     for pat in FORBIDDEN:
         hit = pat.search(src)
         assert hit is None, f"{path}: {hit.group(0).strip()!r}"
+
+
+# The JAX scripts' TPU interconnect constants (scripts/scaling_bench.py's
+# "TPU v5e ICI" bandwidth and latency): the port's collective model takes
+# the card's own link and a measured latency.
+TPU_CONSTANTS = re.compile(r"\bICI\b|v5e|45e9|45\.0e9|\bCOLL_LAT\b")
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_has_no_tpu_constant(path):
+    with open(path) as f:
+        hit = TPU_CONSTANTS.search(f.read())
+    assert hit is None, f"{path}: {hit.group(0)!r}"
 
 
 # The package and chip_smoke.py use nothing of the repository's tests

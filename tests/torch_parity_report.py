@@ -11,7 +11,10 @@ knn_plane, lio, odometry, pipeline, image, ransac, color_map, camera,
 vision, long_run, ingest, retry, sharded (the multi-device slice: 4 gloo
 ranks against JAX's 4-device mesh, about a minute), gate (the accuracy
 gate's bags and configurations against scripts/accuracy_gate.py and an
-8 s ntu-profile bag through both packages, about a minute).
+8 s ntu-profile bag through both packages, about a minute), scaling (the
+scaling bench and the live viewer against scripts/scaling_bench.py and
+scripts/live_viewer.py, the per-rank proxies in lockstep, about a
+minute).
 """
 import tests.conftest  # noqa: F401  (JAX on the CPU before anything runs)
 
@@ -32,6 +35,7 @@ from tests import test_torch_eskf as E
 from tests import test_torch_eviction as EV
 from tests import test_torch_frame as F
 from tests import test_torch_knn_plane as K
+from tests import test_torch_live_viewer as LV
 from tests import test_torch_lie as L
 from tests import test_torch_lio as I
 from tests import test_torch_loop_closure as LC
@@ -45,6 +49,7 @@ from tests import test_torch_ransac as R
 from tests import test_torch_replay as RP
 from tests import test_torch_replay_r3live as RR
 from tests import test_torch_routing as RT
+from tests import test_torch_scaling_bench as SC
 from tests import test_torch_sharded_ba as SB
 from tests import test_torch_sharded_lio as SL
 from tests import test_torch_streaming as ST
@@ -948,11 +953,81 @@ def sharded_rows():
         [(got[f], a) for f, a in solved["compact"]["map"].items()])
 
 
+def scaling_rows():
+    import dataclasses
+
+    from sr_livo_tpu_torch.runtime import live_viewer
+    from sr_livo_tpu_torch.runtime import scaling_bench as sb
+
+    jb = SC.jbench.__wrapped__()
+    row("scaling_bench.base_cfg (scales 1, 2, 8, 64): numeric fields",
+        [(np.array([v for v in _leaves(dataclasses.asdict(sb.base_cfg(k)))]),
+          np.array([v for v in _leaves(dataclasses.asdict(jb.base_cfg(k)))]))
+         for k in (1, 2, 8, 64)])
+    row("scaling_bench.pershard_budgets and pershard_override (8 cases)",
+        [(np.array(list(f(sb.base_cfg(k), n).values())),
+          np.array(list(g(jb.base_cfg(k), n).values())))
+         for k, n in SC.BUDGET_CASES
+         for f, g in ((sb.pershard_budgets, jb.pershard_budgets),
+                      (sb.pershard_override,
+                       lambda c, n: SC._jax_override(jb, c, n)))])
+    for tile in (1, 2, 8):
+        ps = sb.build_sweeps(sb.base_cfg(tile), n=2, device="cpu")
+        js = jb.build_sweeps(jb.base_cfg(tile), n=2, tile=tile)
+        row(f"scaling_bench.build_sweeps(n=2), tile {tile}: every array",
+            [(getattr(p, k).numpy(), np.asarray(getattr(j, k)))
+             for p, j in zip(ps, js) for k in p._fields])
+    bw, lat = 478.116e9, 41e-6
+    jb.ICI_BW, jb.COLL_LAT = bw, lat
+    pairs = []
+    for k, n in ((1, 8), (8, 8), (64, 8)):
+        b = sb.pershard_budgets(sb.base_cfg(k), n)
+        pairs.append((np.array(sb.comm_model(b, n, 6, True, link_bw=bw,
+                                             latency=lat)),
+                      np.array(jb.comm_model(b, n, 6, True)
+                               + (6 * 43 * 4 * 2 + b["F_seg"] * n * 8) / bw
+                               + lat)))
+    row("scaling_bench.comm_model vs the JAX model + the port's departures "
+        "(s)", pairs)
+    port, ref = SC.replicated_pair(jb)
+    row("scaling_bench.replicated_remainder vs the script's repl_only: p, "
+        "cov", list(zip(port, ref)))
+    px = SC.proxies.__wrapped__(jb)
+    for name in sorted(SC.PROXIES):
+        port, ref = px[name]["port"], px[name]["ref"]
+        row(f"ShardedLioEngine per-rank proxy {name} (world of one, n-rank "
+            "budgets) in lockstep with JAX's, 4 sweeps: positions",
+            [(p["p"], r["p"]) for p, r in zip(port, ref)])
+        keys = ("success", "num_residuals", "iterations", "route_overflow",
+                "map_size")
+        row("  ... success, residual count, iterations, overflow, map_size, "
+            "frame_valid, inserted",
+            [(np.array([p[k] for k in keys]), np.array([r[k] for k in keys]))
+             for p, r in zip(port, ref)]
+            + [(p[k], r[k]) for p, r in zip(port, ref)
+               for k in ("frame_valid", "inserted")])
+    jv = LV.jviewer.__wrapped__()
+    dirs = LV.stream_dirs.__wrapped__(_TmpDirs())
+    row("live_viewer.load_state on a port stream (full, thinned, empty)",
+        [(a, b) for case, mp in (("full", 400_000), ("full", 100),
+                                 ("empty", 10))
+         for a, b in zip(live_viewer.load_state(dirs[case], mp)[:4],
+                         jv.load_state(dirs[case], mp)[:4])])
+
+
+def _leaves(d):
+    for v in d.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        elif isinstance(v, (bool, int, float)):
+            yield float(v)
+
+
 SECTIONS = (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
             plane_rows, knn_plane_rows, lio_rows, odometry_rows,
             pipeline_rows, image_rows, ransac_rows, color_map_rows,
             camera_rows, vision_rows, long_run_rows, ingest_rows,
-            retry_rows, sharded_rows, gate_rows)
+            retry_rows, sharded_rows, gate_rows, scaling_rows)
 
 
 def main(argv):
