@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only replay    # device + replay + demo phases
     python3 chip_smoke.py --only sharded   # device + sharded phase
     python3 chip_smoke.py --only scaling   # device + scaling (+ its shapes)
+    python3 chip_smoke.py --only bench     # device + bench (+ its shape)
     python3 chip_smoke.py --only gate      # device + gate (+ its shapes)
 
 Phases, each printing one JSON line:
@@ -70,6 +71,21 @@ Phases, each printing one JSON line:
      timed and bounded, at the three new shapes (`SCALING_SHAPES`: the
      single device's 8192 keypoints on 2^19 slots, the weak-8 per-rank
      K4 ~2.1K, the saturating per-rank K4 ~16.4K on 2^20 slots);
+  6d. bench — the port's throughput bench (`runtime/bench.py`, the port
+     of bench.py) on `cuda`: bench.py's 40 s simulation (seed 3, 256 x 32
+     rays, 512 x 640 images rendered on the card into a temporary cache)
+     through `bench.run_bench` with its warm-up, the host-mode calibration
+     on 6 interleaved bursts and the median of 4 disjoint chunks (stage
+     timers without synchronize).  One line: the bench's record, its
+     seconds, the simulation's seconds, the ATE of the whole run, the
+     launches and the stage host times.  It fails unless the ATE is
+     below 0.05 m with at most 2 failed registrations, `knn_plane_assoc`
+     launched once per frame, no other entry and no plain kNN on the
+     card, 4 chunk rates all positive, and the host mode the
+     calibration's winner.  Then `knn_plane_assoc` against its plain
+     version, timed and bounded, at the last timed sweep's association
+     (captured on the card, `LastCapture`; a2d on rows not flat to
+     rounding);
   7. livo    — the full LIVO loop (LivoPipeline with a VisionModule) at
      bench.py's configuration (512 x 640 images rendered on the card, 300
      tracks, the default colored-map shapes) on a 20 s run: warm-up as in
@@ -149,7 +165,8 @@ this run's inputs; `launches`, `launches_livo`, `launches_backend`,
 runs, the backend's own in the longrun run, those of the bag replay and
 of the gate's profiles; `gate_shapes`: phase `gate`'s;
 `launches_sharded` and `sharded_shapes`: phase `sharded`'s;
-`launches_scaling` and `scaling_shapes`: phase `scaling`'s).  Then it
+`launches_scaling` and `scaling_shapes`: phase `scaling`'s;
+`launches_bench` and `bench_shape`: phase `bench`'s).  Then it
 prints the `{"kernels": [...]}` summary, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase raises and the script
 exits non-zero without that last line.
@@ -187,6 +204,7 @@ from sr_livo_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from sr_livo_tpu_torch.parallel import pose_graph, sharded_lio  # noqa: E402
 from sr_livo_tpu_torch.pipeline import LivoPipeline  # noqa: E402
 from sr_livo_tpu_torch.runtime import accuracy_gate as gate  # noqa: E402
+from sr_livo_tpu_torch.runtime import bench  # noqa: E402
 from sr_livo_tpu_torch.runtime import drivers, native  # noqa: E402
 from sr_livo_tpu_torch.runtime import scaling_bench  # noqa: E402
 from sr_livo_tpu_torch.runtime import synthetic, tum  # noqa: E402
@@ -406,40 +424,14 @@ def kernel_phase(cfg: LivoConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def bench_lio_cfg(cache_association: bool) -> LivoConfig:
-    """bench.py's LIO shapes and reference-scale budgets (bench.py:32-48):
+    """The bench's configuration (`bench.make_cfg`, bench.py:32-57) in an
+    IEKF association mode.  The LIO path reads its shapes and budgets:
     1.0 m map voxels, <= 600 residuals, 5 ICP iterations, 16384 sweep /
     8192 frame points, 1024 keypoints, 64 IMU samples, 2^18 map slots of
     20 points."""
-    cfg = LivoConfig()
-    cfg.odometry_options.voxel_size = 0.25
-    cfg.odometry_options.sample_voxel_size = 1.0
-    cfg.odometry_options.min_distance_points = 0.1
-    cfg.icp.size_voxel_map = 1.0
-    cfg.icp.min_number_neighbors = 12
-    cfg.icp.max_num_residuals = 600
-    cfg.icp.num_iters_icp = 5
-    cfg.shapes.max_sweep_points = 16384
-    cfg.shapes.max_frame_points = 8192
-    cfg.shapes.max_keypoints = 1024
-    cfg.shapes.max_imu_samples = 64
-    cfg.shapes.map_capacity = 1 << 18
+    cfg = bench.make_cfg()
     cfg.cache_association = cache_association
     return cfg
-
-
-def cut_all(pipe: LivoPipeline, sim) -> list:
-    for (t, a, g) in sim.imu:
-        pipe.push_imu(t, a, g)
-    for c in sim.lidar_chunks:
-        pipe.push_points(c)
-    for (t, img) in sim.images:
-        pipe.push_image(t, img)
-    meas = []
-    while True:
-        m = pipe.cutter.get()
-        if m is None:
-            return meas
-        meas.append(m)
 
 
 def _to(device, x):
@@ -476,6 +468,26 @@ class Capture:
         vmap, args, kw = self.args
         return (vm.VoxelMap(*(_to(device, t) for t in vmap)),
                 tuple(_to(device, a) for a in args), kw)
+
+
+def _clone(x):
+    return x.clone() if torch.is_tensor(x) else x
+
+
+class LastCapture(Capture):
+    """A Capture of the last call within the block: each call's map and
+    tensors are cloned on their device (a device-to-device copy, no host
+    transfer), replacing the previous call's record."""
+
+    def __enter__(self):
+        self.orig = getattr(plane_fit, self.name)
+
+        def spy(vmap, *args, **kw):
+            self.args = (vm.VoxelMap(*(_clone(t) for t in vmap)),
+                         tuple(_clone(a) for a in args), dict(kw))
+            return self.orig(vmap, *args, **kw)
+        setattr(plane_fit, self.name, spy)
+        return self
 
 
 class Spy:
@@ -593,7 +605,7 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
     plane_fit.reset_launches()
     with cuda_knn_calls() as knn_calls:
         pipe = LivoPipeline(cfg, device="cuda")
-        meas = cut_all(pipe, sim)
+        meas = bench.cut_all(pipe, sim)
         pipe.process_measurements(meas[:n_warm - 1])
         with Capture(entry) as cap:
             pipe.process_measurements(meas[n_warm - 1:n_warm])
@@ -866,7 +878,7 @@ def profile_phase(sim, n_warm: int = 60, n_sweeps: int = 20) -> dict:
     """torch.profiler over `n_sweeps` measurements of the default mode
     after `n_warm` warm-up ones."""
     pipe = LivoPipeline(bench_lio_cfg(cache_association=True), device="cuda")
-    meas = cut_all(pipe, sim)
+    meas = bench.cut_all(pipe, sim)
     pipe.process_measurements(meas[:n_warm])
     torch.cuda.synchronize()
     n0 = pipe.index_frame
@@ -885,43 +897,20 @@ def profile_phase(sim, n_warm: int = 60, n_sweeps: int = 20) -> dict:
 # Phase 7: the full LIVO loop
 # ---------------------------------------------------------------------------
 
-CAM = (420.0, 420.0, 320.0, 256.0)
-IMAGE_SIZE = (512, 640)     # rows, cols
-R_IMU_CAMERA = [0, 0, 1, -1, 0, 0, 0, -1, 0]
-
-
-def bench_livo_cfg() -> LivoConfig:
-    """bench.py's full LIVO configuration (bench.py:32-57): the LIO shapes
-    of the slice phase, 512 x 640 images, camera (420, 420, 320, 256)
-    without distortion, the forward camera mount, and the default color
-    map (2^19 x 20 voxel points, a 2^20 registry, 8192 render points,
-    2048 render voxels), 300 tracks, a 4-level pyramid, a 21 px window."""
-    cfg = bench_lio_cfg(cache_association=True)
-    co = cfg.camera_options
-    co.image_width, co.image_height = IMAGE_SIZE[1], IMAGE_SIZE[0]
-    co.image_scale = 1.0
-    co.camera_intrinsic = [CAM[0], 0, CAM[2], 0, CAM[1], CAM[3], 0, 0, 1]
-    co.camera_dist_coeffs = [0, 0, 0, 0, 0]
-    cfg.extrinsics.extrinsic_R_imu_camera = list(R_IMU_CAMERA)
-    cfg.extrinsics.extrinsic_t_imu_camera = [0.0, 0.0, 0.0]
-    return cfg
-
-
 def livo_sim():
-    """The 20 s run with images rendered on the card, handed over as uint8
-    like a camera feed (bench.py:80-82).  Returns (sim, ms to render one
-    image and copy it to the host)."""
-    sim = synthetic.simulate(duration=20.0, n_azimuth=256, n_rings=32,
-                             imu_rate=200.0, seed=3, image_size=IMAGE_SIZE,
-                             camera=CAM, device="cuda")
-    sim.images = [(t, np.clip(np.round(im * 255.0), 0, 255).astype(np.uint8))
-                  for (t, im) in sim.images]
+    """The bench's simulation cut to 20 s (`bench.load_sim`: images
+    rendered on the card, handed over as uint8 like a camera feed, cached
+    in a temporary directory).  Returns (sim, ms to render one image and
+    copy it to the host)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        sim = bench.load_sim(duration=20.0, cache_dir=d, device="cuda")
     world, traj = synthetic.SyntheticWorld(), synthetic.Trajectory()
-    dirs = synthetic._camera_ray_table(CAM, IMAGE_SIZE)
+    dirs = synthetic._camera_ray_table(bench.CAM, bench.SIZE)
     t0 = time.perf_counter()
     for k in range(10):
-        synthetic.render_image(world, traj, 5.0 + 0.1 * k, CAM, IMAGE_SIZE,
-                               _dirs_cam=dirs, device="cuda")
+        synthetic.render_image(world, traj, 5.0 + 0.1 * k, bench.CAM,
+                               bench.SIZE, _dirs_cam=dirs, device="cuda")
     return sim, (time.perf_counter() - t0) * 100.0
 
 
@@ -932,7 +921,7 @@ def livo_checks(pipe, vision, sim) -> dict:
     cam = vision.camera
     intr = cam.intr.double().cpu().numpy()
     r_ic = lie.quat_to_rot(cam.q_ic).double().cpu().numpy()
-    r_cfg = np.asarray(R_IMU_CAMERA, np.float64).reshape(3, 3)
+    r_cfg = np.asarray(bench.R_IMU_CAMERA, np.float64).reshape(3, 3)
     ang = math.degrees(math.acos(float(np.clip(
         (np.trace(r_ic @ r_cfg.T) - 1) / 2, -1, 1))))
     cmap = vision.color_map
@@ -964,7 +953,7 @@ def livo_phase(sim, render_ms: float, cfg: LivoConfig,
     with cuda_knn_calls() as knn_calls:
         vision = VisionModule(cfg, device="cuda")
         pipe = LivoPipeline(cfg, vision=vision, device="cuda")
-        meas = cut_all(pipe, sim)
+        meas = bench.cut_all(pipe, sim)
         n_steady = cfg.odometry_options.init_num_frames + 2
         n_warm = frames = rendered = 0
         for m in meas:
@@ -1038,7 +1027,8 @@ def vision_bar_failures(checks: dict) -> list:
     if not (checks["mean_kept_tracks"] > 30 and checks["mean_inliers"] > 20):
         bad.append("too few tracks or inliers")
     fx, fy = checks["intrinsics"][:2]
-    if not (abs(fx - CAM[0]) < 10 and abs(fy - CAM[1]) < 10):
+    if not (abs(fx - bench.CAM[0]) < 10
+            and abs(fy - bench.CAM[1]) < 10):
         bad.append(f"intrinsics drifted to {checks['intrinsics']}")
     if not abs(checks["td_s"]) < 0.05:
         bad.append(f"td {checks['td_s']} s")
@@ -1162,7 +1152,7 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
             pipe = LivoPipeline(cfg, vision=vision, backend=backend,
                                 stream=stream, device="cuda")
             pipe.timers = StageTimers(sync=True, device=pipe.device)
-            meas = cut_all(pipe, sim)
+            meas = bench.cut_all(pipe, sim)
             i = 0
             while i < len(meas) and (not pipe.initialized
                                      or pipe.index_frame <= n_warm_frames):
@@ -1762,7 +1752,7 @@ def record_single_run(sim, cfg: LivoConfig) -> tuple:
     and gyro rate) and its host seconds, synchronised on both sides.
     Returns (pipeline, log)."""
     pipe = LivoPipeline(cfg, device="cuda")
-    meas = cut_all(pipe, sim)
+    meas = bench.cut_all(pipe, sim)
     log = {"first_state": None, "sweeps": [], "frame_ids": [], "gyr": [],
            "seconds": []}
     orig = pipe.engine.step
@@ -2280,11 +2270,89 @@ def scaling_phase() -> dict:
     return {"record": rec, "launched": launched, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# Phase bench: the port's throughput bench on the card
+# ---------------------------------------------------------------------------
+
+def bench_phase() -> dict:
+    """The port's throughput bench (`bench.run_bench`, the port of
+    bench.py) on `cuda` with the host-mode calibration, on bench.py's 40 s
+    simulation (rendered on the card into a temporary cache), with the
+    launch counters set to 0 just before and read just after and the
+    plain-kNN spy on.  The last `knn_plane_assoc` call of the timed
+    chunks (the last timed sweep's association) is captured and the
+    kernel held against its plain version there."""
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        sim = bench.load_sim(cache_dir=d, device="cuda")
+    sim_seconds = time.perf_counter() - t_phase
+    cap = LastCapture("knn_plane_assoc")
+
+    def runner(name, fn):
+        if not name.startswith("chunk"):
+            return fn()
+        with cap:
+            return fn()
+
+    plane_fit.reset_launches()
+    with cuda_knn_calls() as knn_calls:
+        t0 = time.perf_counter()
+        rec, pipe = bench.run_bench(bench.make_cfg(), sim, "cuda",
+                                    runner=runner)
+        seconds = time.perf_counter() - t0
+    launches = dict(plane_fit.launches)
+    recs = pipe.records
+    n_fail = sum(1 for r in recs if not r.success)
+    ts, ps, _ = pipe.trajectory()
+    ate = tum.ate_rmse(ts, ps, sim.gt_times, sim.gt_pos, align=True)
+    cal = rec["calibration_rates"] or {}
+    out = {"phase": "bench", "record": rec, "bench_seconds": seconds,
+           "sim_seconds": sim_seconds, "images": len(sim.images),
+           "frames": len(recs), "ate_m": ate, "failed_registrations": n_fail,
+           "launches": launches, "plain_knn_calls_on_cuda": knn_calls.n,
+           "stages_host_ms": {k: v["mean_ms"]
+                              for k, v in pipe.timers.report().items()}}
+    bad = []
+    if not ate < 0.05 or n_fail > 2:
+        bad.append(f"ATE {ate} m, {n_fail} failed registrations")
+    if launches["knn_plane_assoc"] != len(recs):
+        bad.append(f"knn_plane_assoc launched {launches['knn_plane_assoc']} "
+                   f"times in {len(recs)} frames")
+    others = {k: v for k, v in launches.items()
+              if k != "knn_plane_assoc" and v}
+    if others or knn_calls.n:
+        bad.append(f"the bench launched {others} and called the plain kNN "
+                   f"{knn_calls.n} times on CUDA")
+    rates = rec["chunk_rates"]
+    if len(rates) != bench.N_CHUNKS or not all(r > 0 for r in rates):
+        bad.append(f"chunk rates {rates}")
+    if set(cal) != set(bench.HOST_MODES) or (
+            rec["host_mode"] != max(cal, key=cal.get)):
+        bad.append(f"host mode {rec['host_mode']} from calibration {cal}")
+    if cap.args is None:
+        bad.append("no knn_plane_assoc call captured in the timed chunks")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("bench phase: " + "; ".join(bad))
+    del pipe
+    # a2d on the rows not flat to rounding (FLAT_FLOOR), as at the gate's
+    # and the scaling bench's shapes
+    out["shape"] = assoc_shape("bench_last_sweep", cap,
+                               bench.make_cfg().icp.min_number_neighbors,
+                               True)
+    cap.args = None
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_vs_plain", "bench": out["shape"]})
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["profile", "livo", "longrun",
                                            "resume", "replay", "sharded",
-                                           "scaling", "gate"],
+                                           "scaling", "bench", "gate"],
                         help="run only the device and this phase")
     parser.add_argument("--sharded-rank", type=int,
                         help=argparse.SUPPRESS)   # a rank of phase sharded
@@ -2317,16 +2385,21 @@ def main() -> int:
         scaling_phase()
         print(smi, flush=True)
         return 0
+    if only == "bench":
+        kernels.build("plane_fit")
+        bench_phase()
+        print(smi, flush=True)
+        return 0
     if only in ("livo", "longrun", "resume"):
         lsim, render_ms = livo_sim()
         if only == "livo":
-            livo_phase(lsim, render_ms, bench_livo_cfg())
+            livo_phase(lsim, render_ms, bench.make_cfg())
         elif only == "longrun":
-            caps = longrun_phase(lsim, bench_livo_cfg())[1]
+            caps = longrun_phase(lsim, bench.make_cfg())[1]
             emit({"phase": "fused_vs_plain",
                   "backend": backend_fused_phase(caps)})
         else:
-            resume_phase(lsim, bench_livo_cfg())
+            resume_phase(lsim, bench.make_cfg())
         print(smi, flush=True)
         return 0
     sim = synthetic.simulate(duration=20.0, n_azimuth=256, n_rings=32,
@@ -2363,13 +2436,14 @@ def main() -> int:
     profile_phase(sim)
     sharded = sharded_phase(sim, bench_lio_cfg(cache_association=True))
     scaling = scaling_phase()
+    benched = bench_phase()
     lsim, render_ms = livo_sim()
-    livo = livo_phase(lsim, render_ms, bench_livo_cfg())
-    longrun, caps = longrun_phase(lsim, bench_livo_cfg())
+    livo = livo_phase(lsim, render_ms, bench.make_cfg())
+    longrun, caps = longrun_phase(lsim, bench.make_cfg())
     backend = backend_fused_phase(caps)
     caps.clear()
     emit({"phase": "fused_vs_plain", "backend": backend})
-    resume_phase(lsim, bench_livo_cfg())
+    resume_phase(lsim, bench.make_cfg())
     replay = replay_phase()
     demo_phase()
     gated = gate_phase()
@@ -2386,6 +2460,7 @@ def main() -> int:
             "launches_backend": longrun["launches_backend"][name],
             "launches_replay": replay["launches"][name],
             "launches_gate": gated["launches"][name],
+            "launches_bench": benched["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
@@ -2399,6 +2474,7 @@ def main() -> int:
     summary[0]["sharded_shapes"] = sharded["shapes"]
     summary[0]["launches_scaling"] = scaling["launched"]["knn_plane_assoc"]
     summary[0]["scaling_shapes"] = scaling["shapes"]
+    summary[0]["bench_shape"] = benched["shape"]
     for entry in summary[:2]:
         entry["gate_shapes"] = {
             k: v for k, v in gated["shapes"].items()

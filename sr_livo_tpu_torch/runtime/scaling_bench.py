@@ -84,7 +84,8 @@ from sr_livo_tpu_torch.parallel.mesh import make_mesh
 from sr_livo_tpu_torch.parallel.sharded_lio import (PROFILE_STAGES,
                                                     ShardedLioEngine,
                                                     compute_budgets)
-from sr_livo_tpu_torch.utils.device import resolve_device
+from sr_livo_tpu_torch.utils.device import (device_record, resolve_device,
+                                            synchronize)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -202,11 +203,6 @@ def pershard_override(cfg: LivoConfig, n: int) -> dict:
     return dict(b, **{k: b[k] * n for k in RECEIVED})
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _counters() -> dict:
     return dict(plane_fit.launches, iekf_updates=lio.counts["updates"])
 
@@ -227,14 +223,14 @@ class Run:
         a device synchronize; seconds per sweep."""
         before = _counters()
         dev = self.engine.device
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         for fid, s in enumerate(self.sweeps, start=first_fid):
             o = self.engine.step(self.state, self.vmap, s, fid)
             self.state, self.vmap = o.state, o.voxel_map
             self.positions.append(o.state.p)
             self.overflow.append(o.route_overflow)
-        _sync(dev)
+        synchronize(dev)
         seconds = (time.perf_counter() - t0) / len(self.sweeps)
         for k, v in _counters().items():
             self.counts[k] += v - before[k]
@@ -343,13 +339,13 @@ def replicated_remainder(engine, state, sweep):
 def time_replicated(engine, sweep, reps: int = 20) -> float:
     """Mean seconds of `replicated_remainder` over `reps` calls after one."""
     s0 = engine.init_state()
-    _sync(engine.device)
+    synchronize(engine.device)
     replicated_remainder(engine, s0, sweep)
-    _sync(engine.device)
+    synchronize(engine.device)
     t0 = time.perf_counter()
     for _ in range(reps):
         replicated_remainder(engine, s0, sweep)
-    _sync(engine.device)
+    synchronize(engine.device)
     return (time.perf_counter() - t0) / reps
 
 
@@ -368,12 +364,12 @@ def stage_profile(cfgp: LivoConfig, ov: dict, sweeps_p: list, device
     for stg in PROFILE_STAGES:
         f = eng.make_profile_step(stg)
         f(run.state, run.vmap, sw)
-        _sync(eng.device)
+        synchronize(eng.device)
         best = np.inf
         for _ in range(5):
             t0 = time.perf_counter()
             f(run.state, run.vmap, sw)
-            _sync(eng.device)
+            synchronize(eng.device)
             best = min(best, time.perf_counter() - t0)
         times[stg] = (best - prev) * 1e3
         prev = best
@@ -426,10 +422,10 @@ def collective_latency(device, reps: int = 50) -> tuple:
             os.path.join(d, "store"), 1), rank=0, world_size=1)
         try:
             for i in range(reps + 5):
-                _sync(dev)
+                synchronize(dev)
                 t0 = time.perf_counter()
                 dist.all_reduce(x)
-                _sync(dev)
+                synchronize(dev)
                 if i >= 5:
                     times.append(time.perf_counter() - t0)
         finally:
@@ -543,20 +539,6 @@ def rank_main(rank: int, world: int, workdir: str, device) -> int:
 # ---------------------------------------------------------------------------
 # the measurement
 # ---------------------------------------------------------------------------
-
-def _device_record(dev: torch.device) -> dict:
-    if dev.type != "cuda":
-        return {"type": "cpu"}
-    rec = {"type": "cuda", "name": torch.cuda.get_device_name(dev)}
-    try:
-        rec["nvidia_smi"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.TimeoutExpired, IndexError):
-        rec["nvidia_smi"] = None
-    return rec
-
 
 def _positions(run: Run) -> np.ndarray:
     return torch.stack(run.positions).cpu().numpy()
@@ -684,7 +666,7 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
                                        n) for n in (2, 4, 8)}
     eff_weak = {n: efficiency_weak(t_single, t_weak[n],
                                    comm(weak_cfgs[n], n)) for n in WEAK_N}
-    device_rec = _device_record(dev)
+    device_rec = device_record(dev)
     return {
         "backend": f"{device_rec.get('name', 'cpu')} (1-device-mesh "
                    "per-shard programs; collectives modeled analytically)",
