@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only scaling   # device + scaling (+ its shapes)
     python3 chip_smoke.py --only bench     # device + bench (+ its shape)
     python3 chip_smoke.py --only gate      # device + gate (+ its shapes)
+    python3 chip_smoke.py --only graphs    # device + graphs phases only
 
 Phases, each printing one JSON line:
 
@@ -95,7 +96,24 @@ Phases, each printing one JSON line:
      tests/test_vision_pipeline.py (ATE, kept tracks and inliers, the
      camera intrinsics, time offset and extrinsic, the colored map),
      `knn_plane_assoc` launched once per sweep and no plain kNN call on
-     the card;
+     the card; its profile also counts the host's launches (kernels,
+     graph replays, copies, fills) on the dispatching thread, and it
+     prints each captured program's graph nodes, captures, replays and
+     capture seconds, and the peak reserved memory beside the allocated;
+  7b. graphs — the captured programs (`utils/graphs.py`: the IEKF
+     iteration and the vision frame, CUDA graph replays on the card):
+     (a) in both association modes on the slice's simulation, and on the
+     20 s LIVO run at `bench.make_cfg()`, every 10th program call is
+     replayed and the program's function then run eagerly on clones of
+     its buffers; outputs and state, integers and floats, must be the
+     same bits; (b) at one iteration of `cache_association=False`,
+     `knn_plane_rows` replayed inside the IEKF graph against its plain
+     version on the same inputs (GOOD_AGREE, ATOL_H, ATOL_HX); (c) graph
+     nodes, captures and capture seconds per program, peak memory, and
+     over the LIVO run's last 20 frames host launches on the dispatching
+     thread and device ops per rendered frame and the busy share.  The
+     launch counts hold as in slice and livo (a replay adds what its
+     capture launched), and the LIVO run passes the vision bars;
   8. longrun — the same run with the long-run parts on: the mapping
      backend (loop feedback into the filter with map rebuild, otherwise
      BackendConfig's defaults), far-voxel eviction every 20 frames and a
@@ -166,7 +184,10 @@ runs, the backend's own in the longrun run, those of the bag replay and
 of the gate's profiles; `gate_shapes`: phase `gate`'s;
 `launches_sharded` and `sharded_shapes`: phase `sharded`'s;
 `launches_scaling` and `scaling_shapes`: phase `scaling`'s;
-`launches_bench` and `bench_shape`: phase `bench`'s).  Then it
+`launches_bench` and `bench_shape`: phase `bench`'s; `launches_graphs`:
+phase `graphs`' runs in the entry's association mode, `rows_in_graph`:
+its (b); `captured`: where the entry runs on the main path, inside a
+captured program or eagerly).  Then it
 prints the `{"kernels": [...]}` summary, the nvidia-smi line and, last,
 `{"ok": true, "device": {...}}`.  Any failed phase raises and the script
 exits non-zero without that last line.
@@ -228,6 +249,14 @@ ATOL_HX = 2e-3
 
 KERNEL_SOURCE = "sr_livo_tpu_torch/csrc/plane_fit.cu"
 REPLACES = "sr_livo_tpu/ops/pallas/plane_fit.py:229"
+# where each entry runs on the main path: inside a captured program (a
+# CUDA graph node, replayed) or launched eagerly
+CAPTURED = {
+    "knn_plane_rows": "captured: inside the IEKF iteration program "
+                      "(cache_association=False), one node per iteration",
+    "knn_plane_assoc": "eager: once per IEKF update, before the iteration "
+                       "program",
+    "plane_assoc": "off the main path", "plane_rows": "off the main path"}
 
 
 def emit(obj) -> None:
@@ -438,13 +467,39 @@ def _to(device, x):
     return x.to(device, copy=True) if torch.is_tensor(x) else x
 
 
+def _programs():
+    """The port's captured-program module (`utils/graphs.py`), imported
+    where it is used, so that phases `livo` and `bench` also run in a
+    checkout from before it (to compare the two trees in one call)."""
+    from sr_livo_tpu_torch.utils import graphs
+    return graphs
+
+
+def eager_fn(prog):
+    """`fn` of a captured program run eagerly on its buffers, as the graph
+    would run it (it writes nothing it is given); the kernel launches it
+    makes are not counted."""
+    before = dict(plane_fit.launches)
+    try:
+        return prog.fn(prog.state, prog.inputs)
+    finally:
+        plane_fit.launches.update(before)
+
+
 class Capture:
     """Within the block, records the arguments of the first call of a
     `plane_fit` entry (for which `want(args, kw)` holds, if given): a copy
     of the map and of the tensors, taken before the call, kept in host
     memory so that it does not count in the run's peak device memory.
-    Every call is passed on.  `args_on(device)` returns the record on a
-    device."""
+    Every call is passed on.  A call inside a captured program makes no
+    Python call when the graph replays, so for an entry that a program
+    calls (`IN_PROGRAMS`), before each call of such a program on the
+    card, until a call is recorded, the program's function runs once
+    eagerly on its buffers (`eager_fn`) for the record.
+    `args_on(device)` returns the record on a device."""
+
+    # entry -> the name prefix of the captured programs that call it
+    IN_PROGRAMS = {"knn_plane_rows": "iekf[search"}
 
     def __init__(self, name: str, want=None):
         self.name, self.args = name, None
@@ -459,10 +514,21 @@ class Capture:
                              tuple(_to("cpu", a) for a in args), dict(kw))
             return self.orig(vmap, *args, **kw)
         setattr(plane_fit, self.name, spy)
+        program = _programs().Program
+        self.orig_call = program.__call__
+
+        def call(prog):
+            if (self.args is None and prog.device.type == "cuda"
+                    and self.name in self.IN_PROGRAMS
+                    and prog.name.startswith(self.IN_PROGRAMS[self.name])):
+                eager_fn(prog)
+            return self.orig_call(prog)
+        program.__call__ = call
         return self
 
     def __exit__(self, *exc):
         setattr(plane_fit, self.name, self.orig)
+        _programs().Program.__call__ = self.orig_call
 
     def args_on(self, device):
         vmap, args, kw = self.args
@@ -488,6 +554,9 @@ class LastCapture(Capture):
             return self.orig(vmap, *args, **kw)
         setattr(plane_fit, self.name, spy)
         return self
+
+    def __exit__(self, *exc):
+        setattr(plane_fit, self.name, self.orig)
 
 
 class Spy:
@@ -750,8 +819,16 @@ def check_fused_assoc(vmap, world, valid, thr, kw, min_neighbors) -> float:
 
 
 def check_fused_rows(vmap, args, kw) -> float:
-    hx_k, h_k, good_k = plane_fit.knn_plane_rows_cuda(vmap, *args, **kw)
-    hx_p, h_p, good_p = plane_fit.knn_plane_rows_plain(vmap, *args, **kw)
+    return hold_rows(kw, plane_fit.knn_plane_rows_cuda(vmap, *args, **kw),
+                     plane_fit.knn_plane_rows_plain(vmap, *args, **kw))
+
+
+def hold_rows(kw, kernel_rows, plain_rows) -> float:
+    """The kernel's (h_x, h, good) against the plain version's: `good`
+    agreeing on more than GOOD_AGREE of the rows, at least 100 rows good
+    in both, h within ATOL_H and h_x within ATOL_HX on them."""
+    hx_k, h_k, good_k = kernel_rows
+    hx_p, h_p, good_p = plain_rows
     torch.cuda.synchronize()
     agree = float((good_k == good_p).float().mean())
     both = good_k & good_p
@@ -815,6 +892,10 @@ def fused_phase(captures: dict, min_neighbors: int) -> dict:
 
 KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                    "cuLaunchKernel", "cuLaunchKernelEx")
+# what a host thread hands the device: kernels, graph replays, copies and
+# fills
+HOST_LAUNCHES = KERNEL_LAUNCHES + ("cudaGraphLaunch", "cuGraphLaunch",
+                                   "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def device_profile(run, ranges: str = "") -> dict:
@@ -849,9 +930,17 @@ def device_profile(run, ranges: str = "") -> dict:
         tot[0] += b - a
         tot[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    per_thread = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in HOST_LAUNCHES:
+            per_thread[e.thread] = per_thread.get(e.thread, 0) + 1
     out = {"window_ms": window_us / 1e3, "device_events": len(dev),
            "device_busy_ms": busy / 1e3,
            "device_busy_share": busy / window_us if dev else None,
+           # the dispatching thread is the one that launches the most
+           # (the feeder thread only uploads)
+           "host_launches": max(per_thread.values(), default=0),
+           "host_launches_per_thread": sorted(per_thread.values()),
            "top_device_ops": [{"name": name[:160], "ms": t / 1e3,
                                "calls": n} for name, (t, n) in top]}
     if ranges:
@@ -977,6 +1066,7 @@ def livo_phase(sim, render_ms: float, cfg: LivoConfig,
         seconds = time.perf_counter() - t0
         n_timed = pipe.index_frame - n0
         peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
         stages = {k: v["mean_ms"] for k, v in pipe.timers.report().items()}
         # printed even when it did not run: with every sweep cut at an
         # image, the colored-map insert runs inside `vis_insert` instead
@@ -994,12 +1084,16 @@ def livo_phase(sim, render_ms: float, cfg: LivoConfig,
     launches = dict(plane_fit.launches)
     prof["device_ops_per_rendered_frame"] = (
         prof["device_events"] / max(n_rendered, 1))
+    prof["host_launches_per_rendered_frame"] = (
+        prof["host_launches"] / max(n_rendered, 1))
     checks = livo_checks(pipe, vision, sim)
     out = {"phase": "livo", "measurements": len(meas),
            "frames": len(pipe.records), "timed_frames": n_timed,
            "timed_seconds": seconds,
            "sweeps_images_per_s": n_timed / seconds,
            "stages_ms": stages, "peak_memory_bytes": peak,
+           "peak_reserved_bytes": peak_reserved,
+           "programs": program_record(vision, pipe.engine),
            "render_ms_per_image": render_ms, **checks,
            "launches": launches, "plain_knn_calls_on_cuda": knn_calls.n,
            "profile": {"frames": len(rest), "rendered_frames": n_rendered,
@@ -1039,6 +1133,213 @@ def vision_bar_failures(checks: dict) -> list:
         bad.append(f"{checks['colored_points']} colored points, median "
                    f"error {checks['median_color_err']}")
     return bad
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: the captured programs against their eager functions
+# ---------------------------------------------------------------------------
+
+def program_record(vision, engine) -> list:
+    """Per captured program of a run: its graph's nodes, captures, replays
+    and the host seconds of its last capture (none in a checkout from
+    before the programs)."""
+    progs = list(getattr(vision, "programs", {}).values())
+    progs += list(getattr(engine, "iekf_programs", {}).values())
+    return [{"name": p.name, "nodes": p.nodes, "captures": p.captures,
+             "replays": p.replays, "capture_s": p.capture_s}
+            for p in progs]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits, comparable with torch.equal (NaN included)."""
+    if t.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        return t.contiguous().view(ints[t.element_size()])
+    return t
+
+
+def compare_leaves(graphs, replayed, eager) -> dict:
+    """Leaf by leaf, whether two pytrees hold the same bits; the largest
+    difference of the float leaves that do not."""
+    la, lb = graphs.tree_leaves(replayed), graphs.tree_leaves(eager)
+    out = {"leaves": len(la), "int_differ": 0, "float_differ": 0,
+           "float_max_abs": 0.0}
+    for a, b in zip(la, lb):
+        if torch.equal(_bits(a), _bits(b)):
+            continue
+        if a.is_floating_point():
+            out["float_differ"] += 1
+            out["float_max_abs"] = max(out["float_max_abs"],
+                                       _max_abs(a.double(), b.double()))
+        else:
+            out["int_differ"] += 1
+    return out
+
+
+class ProgramCheck:
+    """Within the block, every `every`-th call of each captured program
+    whose name starts with `prefix` is checked: its buffers are cloned,
+    the graph replayed, then the program's function run eagerly on the
+    clones and its state written back into them (its kernel launches not
+    counted); the outputs and the state must be the same bits.  With
+    `hold_rows_at`, that call of a search-mode IEKF program also keeps
+    the graph's `knn_plane_rows` output and records the kernel's
+    arguments in the eager run (`rows`: (graph rows, Capture))."""
+
+    def __init__(self, prefix: str, every: int = 10,
+                 hold_rows_at: int = 0):
+        self.prefix, self.every = prefix, every
+        self.hold_rows_at = hold_rows_at
+        self.calls, self.checks, self.rows = 0, [], None
+
+    def __enter__(self):
+        graphs = self.graphs = _programs()
+        self.orig_call = graphs.Program.__call__
+
+        def call(prog):
+            if (not prog.name.startswith(self.prefix)
+                    or prog.device.type != "cuda"):
+                return self.orig_call(prog)
+            self.calls += 1
+            want_rows = (self.rows is None and self.hold_rows_at
+                         and self.calls >= self.hold_rows_at
+                         and "search" in prog.name)
+            if self.calls % self.every and not want_rows:
+                return self.orig_call(prog)
+            state = graphs.tree_map(torch.clone, prog.state)
+            inputs = graphs.tree_map(torch.clone, prog.inputs)
+            out = self.orig_call(prog)
+            replayed = (graphs.tree_map(torch.clone, prog.state),
+                        graphs.tree_map(torch.clone, out))
+            before = dict(plane_fit.launches)
+            with contextlib.ExitStack() as stack:
+                cap = (stack.enter_context(Capture("knn_plane_rows"))
+                       if want_rows else None)
+                new_state, eager_out = prog.fn(state, inputs)
+                graphs.refill(state, new_state)
+            plane_fit.launches.update(before)
+            if want_rows:
+                self.rows = ((replayed[1].h_x, replayed[1].h,
+                              replayed[1].good), cap)
+            self.checks.append({"program": prog.name, "call": self.calls,
+                                **compare_leaves(graphs, replayed,
+                                                 (state, eager_out))})
+            return out
+        graphs.Program.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.graphs.Program.__call__ = self.orig_call
+
+    def summary(self) -> dict:
+        c = self.checks
+        return {"calls": self.calls, "checked": len(c),
+                "int_differ": sum(x["int_differ"] for x in c),
+                "float_differ": sum(x["float_differ"] for x in c),
+                "float_max_abs": max((x["float_max_abs"] for x in c),
+                                     default=0.0),
+                "differing": [x for x in c if x["int_differ"]
+                              or x["float_differ"]][:5]}
+
+
+def graphs_phase(sim, lsim, n_profile: int = 20) -> dict:
+    """The captured programs (`utils/graphs.py`) on the card.  (a) The
+    IEKF iteration program in both association modes on phase slice's
+    simulation, and the vision frame program on the 20 s LIVO run at
+    `bench.make_cfg()`: every 10th call is replayed and its function run
+    eagerly on clones of its buffers; integers and floats must be the
+    same bits (no body holds a float atomic whose order could differ: the
+    CLAHE histogram adds exact 1.0s, and the tile-weight accumulate has no
+    repeated index).  (b) At one iteration of the search mode, the
+    `knn_plane_rows` output replayed inside the graph against its plain
+    version on the same inputs, to the bars of phase fused_vs_plain.
+    (c) Graph nodes, captures, replays and capture seconds per program,
+    the peak device memory, and over the LIVO run's last `n_profile`
+    frames (unchecked) host launches on the dispatching thread and device
+    ops per rendered frame, and the device's busy share.  Launch counts
+    hold as in phases slice and livo."""
+    out = {"phase": "graphs"}
+    bad = []
+    for cache in (True, False):
+        entry = "knn_plane_assoc" if cache else "knn_plane_rows"
+        cfg = bench_lio_cfg(cache)
+        plane_fit.reset_launches()
+        it0 = lio.counts["iterations"]
+        with ProgramCheck("iekf", hold_rows_at=0 if cache else 200) as chk:
+            pipe = LivoPipeline(cfg, device="cuda")
+            pipe.process_measurements(bench.cut_all(pipe, sim))
+            torch.cuda.synchronize()
+        iterations = lio.counts["iterations"] - it0
+        launches = dict(plane_fit.launches)
+        rec = {"checks": chk.summary(), "iekf_iterations": iterations,
+               "frames": len(pipe.records), "launches": launches,
+               "programs": program_record(None, pipe.engine)}
+        want = len(pipe.records) if cache else iterations
+        if launches[entry] != want:
+            bad.append(f"{entry} launched {launches[entry]} times in the "
+                       f"{'assoc' if cache else 'search'} run, want {want}")
+        if not cache:
+            if chk.rows is None or chk.rows[1].args is None:
+                bad.append("no knn_plane_rows call held inside the graph")
+            else:
+                graph_rows, cap = chk.rows
+                vmap, args, kw = cap.args_on(torch.device("cuda"))
+                rec["rows_in_graph"] = {
+                    "q": args[0].shape[0], "nb_voxels": kw["nb_voxels"],
+                    "n_valid": int(args[4].sum()),
+                    "max_abs_err": hold_rows(
+                        kw, graph_rows,
+                        plane_fit.knn_plane_rows_plain(vmap, *args, **kw))}
+        out["iekf_" + ("assoc" if cache else "search")] = rec
+        if rec["checks"]["int_differ"] or rec["checks"]["float_differ"]:
+            bad.append(f"iekf ({entry}): replay differs from the eager "
+                       f"function: {rec['checks']['differing']}")
+        if not rec["checks"]["checked"]:
+            bad.append(f"iekf ({entry}): nothing checked")
+
+    cfg = bench.make_cfg()
+    plane_fit.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with ProgramCheck("vision_frame") as chk:
+        vision = VisionModule(cfg, device="cuda")
+        pipe = LivoPipeline(cfg, vision=vision, device="cuda")
+        meas = bench.cut_all(pipe, lsim)
+        pipe.process_measurements(meas[:len(meas) - n_profile])
+        torch.cuda.synchronize()
+    rest = meas[len(meas) - n_profile:]
+    n_rendered = sum(1 for m in rest if m.rendering and m.image is not None)
+
+    def run():
+        pipe.process_measurements(rest)
+        torch.cuda.synchronize()
+
+    prof = device_profile(run)
+    launches = dict(plane_fit.launches)
+    rec = {"checks": chk.summary(), "frames": len(pipe.records),
+           "rendered_frames": len(vision.stats), "launches": launches,
+           "programs": program_record(vision, pipe.engine),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "profile": {"frames": len(rest), "rendered_frames": n_rendered,
+                       "host_launches_per_rendered_frame":
+                           prof["host_launches"] / max(n_rendered, 1),
+                       "device_ops_per_rendered_frame":
+                           prof["device_events"] / max(n_rendered, 1),
+                       **prof}}
+    out["vision"] = rec
+    if rec["checks"]["int_differ"] or rec["checks"]["float_differ"]:
+        bad.append("vision frame: replay differs from the eager function: "
+                   f"{rec['checks']['differing']}")
+    if rec["checks"]["checked"] < 5:
+        bad.append(f"vision frame: {rec['checks']['checked']} frames checked")
+    if launches["knn_plane_assoc"] != len(pipe.records):
+        bad.append(f"knn_plane_assoc launched {launches['knn_plane_assoc']} "
+                   f"times in {len(pipe.records)} LIVO frames")
+    bad += vision_bar_failures(livo_checks(pipe, vision, lsim))
+    emit(out)
+    if bad:
+        raise AssertionError("graphs phase: " + "; ".join(bad))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2352,7 +2653,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["profile", "livo", "longrun",
                                            "resume", "replay", "sharded",
-                                           "scaling", "bench", "gate"],
+                                           "scaling", "bench", "gate",
+                                           "graphs"],
                         help="run only the device and this phase")
     parser.add_argument("--sharded-rank", type=int,
                         help=argparse.SUPPRESS)   # a rank of phase sharded
@@ -2390,9 +2692,14 @@ def main() -> int:
         bench_phase()
         print(smi, flush=True)
         return 0
-    if only in ("livo", "longrun", "resume"):
+    if only in ("livo", "longrun", "resume", "graphs"):
         lsim, render_ms = livo_sim()
-        if only == "livo":
+        if only == "graphs":
+            kernels.build("plane_fit")
+            graphs_phase(synthetic.simulate(
+                duration=20.0, n_azimuth=256, n_rings=32, imu_rate=200.0,
+                seed=3), lsim)
+        elif only == "livo":
             livo_phase(lsim, render_ms, bench.make_cfg())
         elif only == "longrun":
             caps = longrun_phase(lsim, bench.make_cfg())[1]
@@ -2439,6 +2746,7 @@ def main() -> int:
     benched = bench_phase()
     lsim, render_ms = livo_sim()
     livo = livo_phase(lsim, render_ms, bench.make_cfg())
+    graphed = graphs_phase(sim, lsim)
     longrun, caps = longrun_phase(lsim, bench.make_cfg())
     backend = backend_fused_phase(caps)
     caps.clear()
@@ -2461,6 +2769,9 @@ def main() -> int:
             "launches_replay": replay["launches"][name],
             "launches_gate": gated["launches"][name],
             "launches_bench": benched["launches"][name],
+            "launches_graphs": graphed["iekf_assoc" if cache
+                                       else "iekf_search"]["launches"][name],
+            "captured": CAPTURED[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
@@ -2475,6 +2786,7 @@ def main() -> int:
     summary[0]["launches_scaling"] = scaling["launched"]["knn_plane_assoc"]
     summary[0]["scaling_shapes"] = scaling["shapes"]
     summary[0]["bench_shape"] = benched["shape"]
+    summary[1]["rows_in_graph"] = graphed["iekf_search"]["rows_in_graph"]
     for entry in summary[:2]:
         entry["gate_shapes"] = {
             k: v for k, v in gated["shapes"].items()

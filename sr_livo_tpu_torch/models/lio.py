@@ -1,10 +1,15 @@
 """LIO iterated ESIKF: point-to-plane registration against the voxel map.
 
 Port of `sr_livo_tpu/models/lio.py` (the reference optimizer,
-src/optimize.cpp): `build_residuals` vectorizes buildPlaneResiduals
+src/optimize.cpp): the residual rows vectorize buildPlaneResiduals
 (optimize.cpp:18-131) over all keypoints, and `iekf_update` runs
-updateIEKF (optimize.cpp:133-314) as a Python loop with the same
+updateIEKF (optimize.cpp:133-314) as a host loop with the same
 information-form Kalman gain and SO(3)/S2 covariance-reset Jacobians.
+Each round of the loop is one call of a captured program
+(`utils.graphs.Program` over `iteration_fn`: the residual rows, their
+normal equations and the 17x17 update), where the JAX package keeps the
+whole loop in one jitted program as a `lax.while_loop`; the host reads
+the loop's two flags after each round.
 The kNN association and the plane rows go through `ops.plane_fit`'s
 fused entries: one CUDA kernel launch on CUDA tensors, the plain PyTorch
 kNN and plane fit on CPU tensors.
@@ -12,7 +17,7 @@ kNN and plane fit on CPU tensors.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -20,7 +25,7 @@ from sr_livo_tpu_torch.models import eskf as eskf_mod
 from sr_livo_tpu_torch.models.eskf import EskfState
 from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.ops import voxel_map as vm
-from sr_livo_tpu_torch.utils import lie
+from sr_livo_tpu_torch.utils import graphs, lie
 
 
 class ResidualBatch(NamedTuple):
@@ -37,38 +42,15 @@ class IekfSummary(NamedTuple):
 
 
 # IEKF updates of either engine (counted as each starts, before its
-# association) and their iterations (counted by `iekf_iterations`, where
-# the loop already reads its flags back); host integers.  Callers read
-# differences.
+# association) and their iterations (counted by the host loops of
+# `iekf_update` and `iekf_iterations`, where they read their flags back);
+# host integers.  Callers read differences.
 counts = {"updates": 0, "iterations": 0}
 
 
 def _lam(weight_alpha: float, weight_neighborhood: float):
     lam_sum = abs(weight_alpha) + abs(weight_neighborhood)
     return abs(weight_alpha) / lam_sum, abs(weight_neighborhood) / lam_sum
-
-
-def build_residuals(voxel_map: vm.VoxelMap, keypts_raw, keypts_valid, q, t,
-                    last_trans, r_il, t_il, *, size_voxel_map: float,
-                    nb_voxels_visited: int, max_number_neighbors: int,
-                    min_number_neighbors: int, threshold_voxel_capacity,
-                    power_planarity: float, max_dist_to_plane: float,
-                    weight_alpha: float, weight_neighborhood: float,
-                    max_num_residuals: int, max_probe: int) -> ResidualBatch:
-    """One residual-construction pass (buildPlaneResiduals semantics):
-    the kNN association and the full plane row (kernel entry
-    `knn_plane_rows`) at pose (q, t), then the residual cap."""
-    lam_w, lam_nb = _lam(weight_alpha, weight_neighborhood)
-    location = keypts_raw @ r_il.T + t_il                    # IMU frame
-    world = lie.quat_rotate(q.expand(keypts_raw.shape[0], 4), location) + t
-    h_x, h, good = plane_fit.knn_plane_rows(
-        voxel_map, world, location, lie.quat_to_rot(q), last_trans,
-        keypts_valid, threshold_voxel_capacity, voxel_size=size_voxel_map,
-        max_neighbors=max_number_neighbors, max_probe=max_probe,
-        nb_voxels=nb_voxels_visited, lam_w=lam_w, lam_nb=lam_nb,
-        power_planarity=power_planarity, max_dist=max_dist_to_plane,
-        min_neighbors=min_number_neighbors)
-    return _cap_residuals(h_x, h, good, max_num_residuals)
 
 
 def chunked_assoc(voxel_map: vm.VoxelMap, world, n_valid, *, voxel_size,
@@ -132,6 +114,121 @@ def _error_vs_prediction(state: EskfState, pred: EskfState):
     return d_x, d_so3, so3_dg, b_x_pred
 
 
+class IekfIterate(NamedTuple):
+    """The state of the IEKF iteration program (the buffers it updates):
+    the iterate's nominal state packed as [p, q, v, ba, bg, g] (19,) and
+    the final-covariance candidate (17, 17)."""
+    x: torch.Tensor
+    cov_final: torch.Tensor
+
+
+class AssocRows(NamedTuple):
+    """Inputs of the cached-association residual rows: the association at
+    the starting pose (`knn_plane_assoc`) and the keypoints."""
+    normal0: torch.Tensor
+    a2d: torch.Tensor
+    closest: torch.Tensor
+    n_found: torch.Tensor
+    location: torch.Tensor       # (Q, 3) keypoints in the IMU frame
+    keypts_valid: torch.Tensor
+    last_trans: torch.Tensor
+
+
+class SearchRows(NamedTuple):
+    """Inputs of the per-iteration search (`knn_plane_rows`)."""
+    voxel_map: vm.VoxelMap
+    keypts_raw: torch.Tensor
+    keypts_valid: torch.Tensor
+    last_trans: torch.Tensor
+    r_il: torch.Tensor
+    t_il: torch.Tensor
+    threshold_capacity: torch.Tensor
+
+
+class IekfInputs(NamedTuple):
+    pred_x: torch.Tensor         # (19,) the prediction prior, packed
+    cov0: torch.Tensor           # (17, 17) the prior covariance
+    rows: tuple                  # AssocRows or SearchRows
+
+
+class IterationOut(NamedTuple):
+    """What one iteration gives the host loop, and the uncapped rows of
+    its residuals (the kernel's output in the search mode)."""
+    flags: torch.Tensor          # (2,) bool: [enough residuals, converged]
+    num: torch.Tensor            # () int32 residual count
+    h_x: torch.Tensor
+    h: torch.Tensor
+    good: torch.Tensor
+
+
+def pack_state(s: EskfState) -> torch.Tensor:
+    return torch.cat([s.p, s.q, s.v, s.ba, s.bg, s.g])
+
+
+def unpack_state(x: torch.Tensor, like: EskfState = None) -> EskfState:
+    """Views of a packed (19,) nominal state; cov, acc_0 and gyr_0 come
+    from `like` (None without it: the iteration does not read them)."""
+    return EskfState(p=x[0:3], q=x[3:7], v=x[7:10], ba=x[10:13],
+                     bg=x[13:16], g=x[16:19],
+                     cov=None if like is None else like.cov,
+                     acc_0=None if like is None else like.acc_0,
+                     gyr_0=None if like is None else like.gyr_0)
+
+
+def _assoc_rows(inp: AssocRows, s: EskfState, *, lam_w, lam_nb,
+                power_planarity, max_dist_to_plane, min_number_neighbors,
+                **_):
+    n = inp.location.shape[0]
+    world = lie.quat_rotate(s.q.expand(n, 4), inp.location) + s.p
+    return plane_fit.plane_rows_from_assoc(
+        inp.normal0, inp.a2d, inp.closest, inp.n_found, world, inp.location,
+        lie.quat_to_rot(s.q), inp.last_trans, inp.keypts_valid,
+        lam_w=lam_w, lam_nb=lam_nb, power_planarity=power_planarity,
+        max_dist=max_dist_to_plane, min_neighbors=min_number_neighbors)
+
+
+def _search_rows(inp: SearchRows, s: EskfState, *, lam_w, lam_nb,
+                 size_voxel_map, nb_voxels_visited, max_number_neighbors,
+                 min_number_neighbors, power_planarity, max_dist_to_plane,
+                 max_probe, **_):
+    location = inp.keypts_raw @ inp.r_il.T + inp.t_il          # IMU frame
+    world = lie.quat_rotate(s.q.expand(location.shape[0], 4),
+                            location) + s.p
+    return plane_fit.knn_plane_rows(
+        inp.voxel_map, world, location, lie.quat_to_rot(s.q),
+        inp.last_trans, inp.keypts_valid, inp.threshold_capacity,
+        voxel_size=size_voxel_map, max_neighbors=max_number_neighbors,
+        max_probe=max_probe, nb_voxels=nb_voxels_visited, lam_w=lam_w,
+        lam_nb=lam_nb, power_planarity=power_planarity,
+        max_dist=max_dist_to_plane, min_neighbors=min_number_neighbors)
+
+
+def iteration_fn(cache_association: bool, **statics):
+    """The IEKF iteration program's function (`utils.graphs.Program`):
+    the residual rows at the iterate, their normal equations and the
+    17x17 update (`iekf_iteration`).  fn(IekfIterate, IekfInputs) ->
+    (IekfIterate, IterationOut).  It is the body of one round of the
+    JAX package's IEKF `while_loop` (sr_livo_tpu/models/lio.py:400)."""
+    rows_of = _assoc_rows if cache_association else _search_rows
+    step = {k: statics[k] for k in (
+        "min_number_neighbors", "threshold_translation_norm",
+        "threshold_orientation_norm", "laser_point_cov",
+        "check_convergence")}
+
+    def fn(state: IekfIterate, inputs: IekfInputs):
+        s = unpack_state(state.x)
+        h_x, h, good = rows_of(inputs.rows, s, **statics)
+        res = _cap_residuals(h_x, h, good, statics["max_num_residuals"])
+        hth, hth_h = normal_sums(res.h_x, res.h)
+        s_new, cov_final, flags = iekf_iteration(
+            s, unpack_state(inputs.pred_x), inputs.cov0,
+            hth.to(res.h_x.dtype), hth_h.to(res.h_x.dtype), res.num,
+            state.cov_final, **step)
+        return (IekfIterate(pack_state(s_new), cov_final),
+                IterationOut(flags, res.num, h_x, h, good))
+    return fn
+
+
 def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
                 keypts_valid, last_trans, r_il, t_il,
                 threshold_voxel_capacity, *, size_voxel_map: float,
@@ -144,7 +241,7 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
                 threshold_orientation_norm: float, laser_point_cov: float,
                 check_convergence: bool = True,
                 cache_association: bool = False, query_chunk: int = 0,
-                seed_q=None, seed_p=None):
+                seed_q=None, seed_p=None, programs: Optional[dict] = None):
     """Iterated EKF measurement update (updateIEKF, optimize.cpp:133-314).
 
     Runs `max_iters + 1` iterations at most (the reference loops
@@ -158,11 +255,23 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
     the starting pose (kernel entry `knn_plane_assoc`; on the CPU over the
     valid prefix in `query_chunk`-row slices); iterations recompute only
     the pose-dependent distances/Jacobians.  Otherwise each iteration runs
-    `build_residuals` (kernel entry `knn_plane_rows`).
+    the search (kernel entry `knn_plane_rows`).
 
     `seed_q`/`seed_p` override the STARTING iterate pose while `state`
     stays the prediction prior (the INIT_CONSTANT_VELOCITY predictor,
     lioOptimization.cpp:895-990).
+
+    Each iteration is one call of the iteration program
+    (`iteration_fn`): a CUDA graph replay on the card, the function run
+    directly on the CPU.  `programs` caches the programs by their static
+    arguments and shapes (a `LioEngine` keeps one dict, as the JAX
+    package keeps its jitted steps; without it the call captures its
+    own).  The program's buffers are updated in place: the iterate, and
+    the inputs copied in at the start of the update.  In the search mode
+    the map is read where it lies: the program is captured on the map's
+    tensors (which `voxel_map.insert` updates in place) and captured
+    again when a new map comes (eviction's `compact_map`, a backend
+    rebuild, a checkpoint load), rather than copying the map.
 
     Each iteration reads two flags back to the host to decide whether to
     go on.  Returns (state, IekfSummary).
@@ -172,16 +281,17 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
     if seed_q is not None:
         state = state._replace(q=seed_q, p=seed_p)
     lam_w, lam_nb = _lam(weight_alpha, weight_neighborhood)
-    icp = dict(size_voxel_map=size_voxel_map,
-               nb_voxels_visited=nb_voxels_visited,
-               max_number_neighbors=max_number_neighbors,
-               min_number_neighbors=min_number_neighbors,
-               threshold_voxel_capacity=threshold_voxel_capacity,
-               power_planarity=power_planarity,
-               max_dist_to_plane=max_dist_to_plane,
-               weight_alpha=weight_alpha,
-               weight_neighborhood=weight_neighborhood,
-               max_num_residuals=max_num_residuals, max_probe=max_probe)
+    statics = dict(
+        size_voxel_map=size_voxel_map, nb_voxels_visited=nb_voxels_visited,
+        max_number_neighbors=max_number_neighbors,
+        min_number_neighbors=min_number_neighbors,
+        power_planarity=power_planarity,
+        max_dist_to_plane=max_dist_to_plane, lam_w=lam_w, lam_nb=lam_nb,
+        max_num_residuals=max_num_residuals, max_probe=max_probe,
+        threshold_translation_norm=threshold_translation_norm,
+        threshold_orientation_norm=threshold_orientation_norm,
+        laser_point_cov=laser_point_cov,
+        check_convergence=check_convergence)
 
     if cache_association:
         location = keypts_raw @ r_il.T + t_il               # IMU frame
@@ -189,37 +299,72 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
         world0 = lie.quat_rotate(state.q.expand(n, 4), location) + state.p
         # keypoints are prefix-compacted (frame.voxel_subsample), so the
         # association only computes the occupied prefix
-        normal0, a2d, closest, n_found = plane_fit.knn_plane_assoc(
+        assoc = plane_fit.knn_plane_assoc(
             voxel_map, world0, keypts_valid, threshold_voxel_capacity,
             voxel_size=size_voxel_map, max_neighbors=max_number_neighbors,
             max_probe=max_probe, nb_voxels=nb_voxels_visited,
             chunk=query_chunk)
-
-        def residuals(s: EskfState) -> ResidualBatch:
-            world = lie.quat_rotate(s.q.expand(n, 4), location) + s.p
-            h_x, h, good = plane_fit.plane_rows_from_assoc(
-                normal0, a2d, closest, n_found, world, location,
-                lie.quat_to_rot(s.q), last_trans, keypts_valid,
-                lam_w=lam_w, lam_nb=lam_nb, power_planarity=power_planarity,
-                max_dist=max_dist_to_plane,
-                min_neighbors=min_number_neighbors)
-            return _cap_residuals(h_x, h, good, max_num_residuals)
+        rows = AssocRows(*assoc, location, keypts_valid, last_trans)
     else:
-        def residuals(s: EskfState) -> ResidualBatch:
-            return build_residuals(voxel_map, keypts_raw, keypts_valid, s.q,
-                                   s.p, last_trans, r_il, t_il, **icp)
+        rows = SearchRows(voxel_map, keypts_raw, keypts_valid, last_trans,
+                          r_il, t_il, threshold_voxel_capacity)
+    start = IekfIterate(pack_state(state), pred.cov)
+    inputs = IekfInputs(pack_state(pred), pred.cov, rows)
 
-    def normal_equations(s: EskfState):
-        res = residuals(s)
-        hth, hth_h = normal_sums(res.h_x, res.h)
-        return hth.to(res.h_x.dtype), hth_h.to(res.h_x.dtype), res.num
+    def owned(inp: IekfInputs) -> IekfInputs:
+        # buffers of the program's own: its refills write into them, so
+        # they must not be the caller's tensors (`last_trans` is the last
+        # solved state's position); the map and the extrinsic are read,
+        # never written, and stay the caller's
+        r = inp.rows
+        if cache_association:
+            r = graphs.tree_map(torch.clone, r)
+        else:
+            r = r._replace(keypts_raw=r.keypts_raw.clone(),
+                           keypts_valid=r.keypts_valid.clone(),
+                           last_trans=r.last_trans.clone(),
+                           threshold_capacity=r.threshold_capacity.clone())
+        return IekfInputs(inp.pred_x.clone(), inp.cov0.clone(), r)
 
-    return iekf_iterations(
-        state, pred, normal_equations,
-        min_number_neighbors=min_number_neighbors, max_iters=max_iters,
-        threshold_translation_norm=threshold_translation_norm,
-        threshold_orientation_norm=threshold_orientation_norm,
-        laser_point_cov=laser_point_cov, check_convergence=check_convergence)
+    key = (cache_association, keypts_raw.shape[0], keypts_raw.device,
+           tuple(sorted(statics.items())))
+    programs = {} if programs is None else programs
+    prog = programs.get(key)
+    if prog is None:
+        prog = programs[key] = graphs.Program(
+            iteration_fn(cache_association, **statics),
+            graphs.tree_map(torch.clone, start), owned(inputs),
+            name=f"iekf[{'assoc' if cache_association else 'search'}, "
+                 f"nb={nb_voxels_visited}]")
+    else:
+        if cache_association or graphs.same_leaves(
+                prog.inputs.rows.voxel_map, voxel_map):
+            graphs.refill(prog.inputs, inputs)
+        else:
+            prog.rebind(inputs=owned(inputs))
+        graphs.refill(prog.state, start)
+
+    it = 0
+    while True:
+        out = prog()
+        it += 1
+        counts["iterations"] += 1
+        ok, conv = out.flags.tolist()
+        if not (it < max_iters + 1 and not conv and ok):
+            break
+    n_res = out.num.clone()
+    if ok:
+        # copies: the program's buffers are overwritten by its next call
+        x = prog.state.x.clone()
+        s = unpack_state(x, state)._replace(cov=prog.state.cov_final.clone())
+    else:
+        s = state
+    summary = IekfSummary(
+        success=torch.tensor(ok, device=keypts_raw.device),
+        num_residuals=n_res,
+        iterations=torch.tensor(it, dtype=torch.int32,
+                                device=keypts_raw.device))
+    return s, summary
 
 
 def normal_sums(h_x: torch.Tensor, h: torch.Tensor):
@@ -239,70 +384,92 @@ def normal_sums(h_x: torch.Tensor, h: torch.Tensor):
     return h_x64.T @ h_x64, h_x64.T @ h.double()
 
 
+def iekf_iteration(s: EskfState, pred: EskfState, cov0, hth, hth_h, num,
+                   cov_final, *, min_number_neighbors: int,
+                   threshold_translation_norm: float,
+                   threshold_orientation_norm: float,
+                   laser_point_cov: float, check_convergence: bool = True):
+    """One iteration of updateIEKF (optimize.cpp:172-309) from iterate `s`
+    against the prediction prior `pred` (with `cov0` the prior
+    covariance), given the point-to-plane system at `s`: H^T H (6, 6),
+    H^T h (6,) and the residual count.  Returns (next iterate,
+    final-covariance candidate, flags (2,) bool [enough, converged]);
+    reads nothing back to the host."""
+    f = dict(dtype=cov0.dtype, device=cov0.device)
+    eye17 = torch.eye(17, **f)
+    enough = num >= min_number_neighbors
+
+    d_x_cur, d_so3, so3_dg, b_x_pred = _error_vs_prediction(s, pred)
+    j_old = _reset_jacobian(d_so3, so3_dg, b_x_pred)
+    d_x_new = j_old @ d_x_cur
+    cov = j_old @ cov0 @ j_old.T
+
+    # inv_ex: no error check, so no host read (the JAX package never
+    # raises either)
+    temp = torch.linalg.inv_ex(cov / laser_point_cov)[0]
+    temp[0:6, 0:6] += hth
+    temp_inv = torch.linalg.inv_ex(temp)[0]
+    k_h = temp_inv[:, 0:6] @ hth_h                       # (17,)
+    k_x = torch.zeros((17, 17), **f)
+    k_x[:, 0:6] = temp_inv[:, 0:6] @ hth
+    d_x = -k_h + (k_x - eye17) @ d_x_new
+
+    # Divergence guard (optimize.cpp:248-251): skip the injection.
+    diverged = (torch.linalg.norm(d_x[0:3]) > 100.0) | (
+        lie.angular_distance_deg(d_x[3:6]) > 100.0)
+    apply = enough & ~diverged
+    g_before = s.g
+    s = eskf_mod.observe(s, torch.where(apply, d_x, torch.zeros_like(d_x)))
+    if check_convergence:
+        converged = ((torch.linalg.norm(d_x[0:3]) < threshold_translation_norm)
+                     & (lie.angular_distance_deg(d_x[3:6])
+                        < threshold_orientation_norm)
+                     & apply)
+    else:
+        converged = torch.zeros((), dtype=torch.bool, device=f["device"])
+
+    # Final covariance candidate from this iteration's quantities
+    # (optimize.cpp:272-309): J from the applied d_x and the
+    # pre-injection gravity.
+    b_x_before = lie.s2_bx(g_before)
+    j_new = _reset_jacobian(d_x[3:6], b_x_before @ d_x[15:17], b_x_before)
+    cov_final = torch.where(apply, j_new @ (cov - k_x @ cov) @ j_new.T,
+                            cov_final)
+    return s, cov_final, torch.stack([enough, converged])
+
+
 def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
                     min_number_neighbors: int, max_iters: int,
                     threshold_translation_norm: float,
                     threshold_orientation_norm: float,
                     laser_point_cov: float, check_convergence: bool = True):
     """The iteration loop of updateIEKF (optimize.cpp:133-314) from the
-    starting iterate `state` against the prediction prior `pred`.
+    starting iterate `state` against the prediction prior `pred`, run
+    eagerly: the sharded engine's form, whose `normal_equations` holds
+    collectives (the single-device engine runs `iekf_update`'s captured
+    iteration program).
 
     `normal_equations(s)` gives the point-to-plane system at iterate `s`:
-    (H^T H (6, 6), H^T h (6,), residual count () int32) — from this
-    device's rows, or psum'd over the map mesh by the sharded engine.
-    Each iteration reads two flags back to the host to decide whether to
-    go on, so every value they come from must be the same on every rank.
-    Returns (state, IekfSummary); on failure the state is `state`."""
-    f = dict(dtype=state.cov.dtype, device=state.cov.device)
-    eye17 = torch.eye(17, **f)
-    s, it, ok = state, 0, True
-    n_res = torch.zeros((), dtype=torch.int32, device=f["device"])
+    (H^T H (6, 6), H^T h (6,), residual count () int32) — psum'd over the
+    map mesh by the sharded engine.  Each iteration reads two flags back
+    to the host to decide whether to go on, so every value they come from
+    must be the same on every rank.  Returns (state, IekfSummary); on
+    failure the state is `state`."""
+    s, it = state, 0
     cov_final = state.cov
     while True:
         hth, hth_h, num = normal_equations(s)
-        enough = num >= min_number_neighbors
-
-        d_x_cur, d_so3, so3_dg, b_x_pred = _error_vs_prediction(s, pred)
-        j_old = _reset_jacobian(d_so3, so3_dg, b_x_pred)
-        d_x_new = j_old @ d_x_cur
-        cov = j_old @ state.cov @ j_old.T
-
-        temp = torch.linalg.inv(cov / laser_point_cov)
-        temp[0:6, 0:6] += hth
-        temp_inv = torch.linalg.inv(temp)
-        k_h = temp_inv[:, 0:6] @ hth_h                       # (17,)
-        k_x = torch.zeros((17, 17), **f)
-        k_x[:, 0:6] = temp_inv[:, 0:6] @ hth
-        d_x = -k_h + (k_x - eye17) @ d_x_new
-
-        # Divergence guard (optimize.cpp:248-251): skip the injection.
-        diverged = (torch.linalg.norm(d_x[0:3]) > 100.0) | (
-            lie.angular_distance_deg(d_x[3:6]) > 100.0)
-        apply = enough & ~diverged
-        g_before = s.g
-        s = eskf_mod.observe(s, torch.where(apply, d_x,
-                                            torch.zeros_like(d_x)))
-        if check_convergence:
-            converged = ((torch.linalg.norm(d_x[0:3])
-                          < threshold_translation_norm)
-                         & (lie.angular_distance_deg(d_x[3:6])
-                            < threshold_orientation_norm)
-                         & apply)
-        else:
-            converged = torch.zeros((), dtype=torch.bool, device=f["device"])
-
-        # Final covariance candidate from this iteration's quantities
-        # (optimize.cpp:272-309): J from the applied d_x and the
-        # pre-injection gravity.
-        b_x_before = lie.s2_bx(g_before)
-        j_new = _reset_jacobian(d_x[3:6], b_x_before @ d_x[15:17],
-                                b_x_before)
-        cov_final = torch.where(apply, j_new @ (cov - k_x @ cov) @ j_new.T,
-                                cov_final)
+        s, cov_final, flags = iekf_iteration(
+            s, pred, state.cov, hth, hth_h, num, cov_final,
+            min_number_neighbors=min_number_neighbors,
+            threshold_translation_norm=threshold_translation_norm,
+            threshold_orientation_norm=threshold_orientation_norm,
+            laser_point_cov=laser_point_cov,
+            check_convergence=check_convergence)
         it += 1
         counts["iterations"] += 1
         n_res = num
-        ok, conv = (bool(v) for v in torch.stack([enough, converged]).tolist())
+        ok, conv = flags.tolist()
         if not (it < max_iters + 1 and not conv and ok):
             break
 
@@ -311,6 +478,7 @@ def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
     else:
         s = state
     summary = IekfSummary(
-        success=torch.tensor(ok, device=f["device"]), num_residuals=n_res,
-        iterations=torch.tensor(it, dtype=torch.int32, device=f["device"]))
+        success=torch.tensor(ok, device=cov_final.device), num_residuals=n_res,
+        iterations=torch.tensor(it, dtype=torch.int32,
+                                device=cov_final.device))
     return s, summary

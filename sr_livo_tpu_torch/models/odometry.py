@@ -6,7 +6,9 @@ path run() -> process() -> buildFrame() -> stateEstimation(),
 lioOptimization.cpp:1428-1584, 1037-1131, 821-893, 992-1035).  PyTorch
 runs eagerly, so the step is plain Python over tensors on one device; the
 data-dependent loops of the JAX program (IEKF iterations, claim rounds)
-read a flag back to the host once per round.
+read a flag back to the host once per round.  Each IEKF iteration is one
+replay of a captured program on the card (`lio.iekf_update`), owned by
+the engine.
 """
 
 from __future__ import annotations
@@ -103,7 +105,8 @@ def _subsample_priority(n: int, device: torch.device) -> torch.Tensor:
 def _sweep_core(state: EskfState, voxel_map: vm.VoxelMap, sweep: SweepInput,
                 noise: torch.Tensor, r_il: torch.Tensor, t_il: torch.Tensor,
                 cfg: LivoConfig, phase: str, prev_poses=None,
-                timers: Optional[StageTimers] = None) -> SweepOutput:
+                timers: Optional[StageTimers] = None,
+                programs: Optional[dict] = None) -> SweepOutput:
     """phase: 'init' (frame_id < init_num_frames), 'steady' or
     'steady_dense' (the finer keypoint grid of adaptive_keypoint_density).
 
@@ -114,7 +117,8 @@ def _sweep_core(state: EskfState, voxel_map: vm.VoxelMap, sweep: SweepInput,
       q_next = q1 q0^-1 q1,  t_next = t1 + q1 q0^-1 (t1 - t0).
     The map is updated in place.  With `timers`, each numbered step is
     timed as a stage of its own (predict, deskew, subsample, iekf,
-    insert)."""
+    insert).  `programs` caches the IEKF iteration programs
+    (`lio.iekf_update`)."""
 
     @contextlib.contextmanager
     def stage(name):
@@ -219,7 +223,7 @@ def _sweep_core(state: EskfState, voxel_map: vm.VoxelMap, sweep: SweepInput,
             threshold_orientation_norm=icp.threshold_orientation_norm,
             laser_point_cov=cfg.laser_point_cov,
             cache_association=cfg.cache_association,
-            query_chunk=sh.query_chunk)
+            query_chunk=sh.query_chunk, programs=programs)
 
     with stage("iekf"):
         state_upd, summary = _update(nb_voxels)
@@ -279,6 +283,11 @@ class LioEngine:
         self.t_il = torch.as_tensor(cfg.extrinsics.t_imu_lidar(), **f)
         self.use_cv_init = (cfg.odometry_options.initialization
                             == INIT_CONSTANT_VELOCITY)
+        # The IEKF iteration programs (CUDA graphs on the card), keyed by
+        # association mode, keypoint budget and the static arguments
+        # (nb_voxels among them: the init phase and the weak-solve retry
+        # widen it), as the JAX package keys its jitted steps by phase.
+        self.iekf_programs: dict = {}
 
     def init_state(self) -> EskfState:
         return eskf_mod.init_state(self.cfg.gravity_acc, self.dtype,
@@ -313,4 +322,5 @@ class LioEngine:
         return _sweep_core(state, voxel_map, sweep, self.noise, self.r_il,
                            self.t_il, self.cfg,
                            self.phase(frame_id, gyr_rate),
-                           prev_poses=prev_poses, timers=timers)
+                           prev_poses=prev_poses, timers=timers,
+                           programs=self.iekf_programs)

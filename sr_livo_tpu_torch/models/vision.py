@@ -12,6 +12,8 @@ imageProcessing.cpp:14).
 
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -24,6 +26,7 @@ from sr_livo_tpu_torch.models import camera as cam_mod
 from sr_livo_tpu_torch.ops import color_map as cm
 from sr_livo_tpu_torch.ops import image_ops, lk, ransac
 from sr_livo_tpu_torch.runtime import native
+from sr_livo_tpu_torch.utils import graphs
 from sr_livo_tpu_torch.utils.device import resolve_device
 
 # Hypotheses per frame of the two RANSAC gates (the JAX package's
@@ -48,6 +51,27 @@ def make_tracks(m: int, device="cpu") -> TrackState:
 NoiseHook = Callable[[int, int, int], Tuple[np.ndarray, np.ndarray]]
 
 
+class FrameState(NamedTuple):
+    """The frame program's state (the buffers it updates in place; the
+    arguments the JAX package's fused frame program donates)."""
+    camera: cam_mod.CameraState
+    color_map: cm.ColorMap
+    tracks: TrackState
+    prev_pyr: tuple                 # (pyramid, dx, dy) of the last frame
+
+
+class FrameInputs(NamedTuple):
+    """The frame program's per-frame inputs."""
+    img_u8: torch.Tensor            # (rows, cols, 3) uint8
+    q_wi: torch.Tensor              # (4,) IMU pose at the image instant
+    t_wi: torch.Tensor              # (3,)
+    dt: torch.Tensor                # () f32 seconds since the last frame
+    obs_time: torch.Tensor          # () f32 image time
+    n_new_visited: torch.Tensor     # () int32 from this sweep's insert
+    noise_f: torch.Tensor           # (F_HYPOTHESES, M) Gumbel draws
+    noise_pnp: torch.Tensor         # (PNP_HYPOTHESES, M)
+
+
 class VisionModule:
     """Owns the camera state, the colored map, the tracks and the previous
     frame's pyramid, on one device (default "cuda").
@@ -57,6 +81,15 @@ class VisionModule:
     given, returns the Gumbel noise of a frame's F and PnP gates instead
     ((n_hyp, m) arrays); the parity tests feed the JAX package's key-chain
     draws through it.
+
+    After the first rendered frame, a frame's preprocess, pyramid and
+    vision step run as one program (`utils.graphs.Program` over
+    `_fused_frame_core`): one CUDA graph replay on the card, keyed by
+    whether the host remap ran, as the JAX package keys its fused jit.
+    The program's state buffers are the module's camera, colored map,
+    tracks and previous pyramid, which it updates IN PLACE; a tensor that
+    eager code replaces (the colored-map insert, a checkpoint load) is
+    copied into its buffer before the next frame.
     """
 
     def __init__(self, cfg: LivoConfig, device="cuda",
@@ -117,6 +150,7 @@ class VisionModule:
                                         device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(7)
         self.noise_hook = noise_hook
+        self.programs: dict = {}         # remapped -> the frame program
         # (t, n_tracked, n_inlier) per rendering frame; the per-frame counts
         # stay one device vector each until first read (one batched copy).
         self._stats: list = []
@@ -251,36 +285,85 @@ class VisionModule:
             return
 
         dt = obs_time - self.prev_time
-        # vis_step = vis_insert + vis_preprocess + vis_track (each stage
-        # waits for its device work when the timers synchronize)
+        # vis_step = vis_insert + vis_track (each stage waits for its
+        # device work when the timers synchronize)
         with timers.stage("vis_step"):
-            t_obs = self._scalar(obs_time)
             with timers.stage("vis_insert"):
                 self.color_map, self.n_new_visited = self._gated_insert(
                     self.color_map, sweep_out.frame_pts_world,
-                    sweep_out.frame_valid, sweep_out.summary.success, t_obs)
-                timers.synchronize()
-            with timers.stage("vis_preprocess"):
-                rgb, _gray, cur_pyr = self.preprocess_with_pyramid(
-                    None, host_img=host_img)
+                    sweep_out.frame_valid, sweep_out.summary.success,
+                    self._scalar(obs_time))
                 timers.synchronize()
             with timers.stage("vis_track"):
-                noise_f, noise_pnp = self._noise()
-                self.camera, self.color_map, self.tracks, stats_vec = \
-                    vision_step(
-                        self.camera, self.color_map, self.tracks,
-                        self.prev_pyr, cur_pyr, rgb, q_wi, t_wi,
-                        self._scalar(dt), t_obs, self.n_new_visited,
-                        noise_f, noise_pnp, lk_params=self.lk_params,
-                        cols=self.cols, rows=self.rows,
-                        track_grid=self.track_grid,
-                        max_render_points=self.cfg.shapes.max_render_points,
-                        fm_px=self.cfg.camera_options.fm_ransac_px,
-                        pnp_px=self.cfg.camera_options.pnp_ransac_px)
+                # preprocess + pyramid + vision step: one program
+                stats_vec = self._run_frame_program(
+                    host_img, q_wi, t_wi, dt, obs_time)
                 timers.synchronize()
-        self._stats_pending.append((float(obs_time), stats_vec))
-        self.prev_pyr = cur_pyr
+        # a copy: the program's output is overwritten by its next call
+        self._stats_pending.append((float(obs_time), stats_vec.clone()))
         self.prev_time = obs_time
+
+    def _run_frame_program(self, host_img, q_wi, t_wi, dt: float,
+                           obs_time: float) -> torch.Tensor:
+        """The frame program over this frame's inputs; returns its stats
+        output.  The inputs are copied (or, for the two times, filled)
+        into the program's buffers, the RANSAC noise drawn outside it, so
+        that the generator's stream is the eager one's and no host value
+        is baked into the graph."""
+        img_u8, remapped = self._upload(host_img)
+        noise_f, noise_pnp = self._noise()
+        state = FrameState(self.camera, self.color_map, self.tracks,
+                           self.prev_pyr)
+        prog = self.programs.get(remapped)
+        if prog is None:
+            inputs = FrameInputs(
+                img_u8, q_wi, t_wi, self._scalar(dt), self._scalar(obs_time),
+                self.n_new_visited, noise_f, noise_pnp)
+            # the state is adopted (the module owns it); the inputs are
+            # the program's own copies, since refills write into them.  The
+            # function holds the module weakly: the module owns its
+            # programs, and without a reference cycle their graphs' memory
+            # goes as soon as the module does.
+            prog = self.programs[remapped] = graphs.Program(
+                functools.partial(VisionModule._fused_frame_core,
+                                  weakref.proxy(self), remapped=remapped),
+                state, graphs.tree_map(torch.clone, inputs),
+                name=f"vision_frame[remapped={remapped}]")
+        else:
+            graphs.refill(prog.state, state)
+            inp = prog.inputs
+            inp.dt.fill_(dt)
+            inp.obs_time.fill_(obs_time)
+            graphs.refill(inp, FrameInputs(
+                img_u8, q_wi, t_wi, inp.dt, inp.obs_time,
+                self.n_new_visited, noise_f, noise_pnp))
+        stats_vec = prog()
+        self.camera, self.color_map, self.tracks, self.prev_pyr = prog.state
+        return stats_vec
+
+    def _fused_frame_core(self, state: FrameState, inputs: FrameInputs, *,
+                          remapped: bool):
+        """The frame program's function: the counterpart of the JAX
+        package's `VisionModule._fused_frame_core`
+        (sr_livo_tpu/models/vision.py:288-314).  Preprocess (the JAX
+        package's `_preprocess_from_u8` when the host remap ran, else
+        with the device undistort), the LK pyramid of the frame and the
+        vision step (`_vision_step_core`).  The colored-map insert that
+        opens the JAX program stays eager here (its claim rounds read the
+        host); its `n_new_visited` comes in `inputs`.  Returns
+        (FrameState, stats (8,) int64); reads nothing back to the host."""
+        rgb, gray = self._preprocess_dev(inputs.img_u8, remapped)
+        cur_pyr = lk.precompute_frame(gray, self.lk_params.levels)
+        camera, color_map, tracks, stats = vision_step(
+            state.camera, state.color_map, state.tracks, state.prev_pyr,
+            cur_pyr, rgb, inputs.q_wi, inputs.t_wi, inputs.dt,
+            inputs.obs_time, inputs.n_new_visited, inputs.noise_f,
+            inputs.noise_pnp, lk_params=self.lk_params, cols=self.cols,
+            rows=self.rows, track_grid=self.track_grid,
+            max_render_points=self.cfg.shapes.max_render_points,
+            fm_px=self.cfg.camera_options.fm_ransac_px,
+            pnp_px=self.cfg.camera_options.pnp_ransac_px)
+        return FrameState(camera, color_map, tracks, cur_pyr), stats
 
     @property
     def stats(self):
@@ -469,8 +552,11 @@ def _maintain_tracks(color_map, tracks, camera, status, reg_rows, ids_c,
     # occupancy grid of surviving tracks
     ncx, ncy = cols // track_grid + 2, rows // track_grid + 2
     cell = _grid_cell(cur_px, track_grid, ncx, ncy)
-    occ = torch.zeros((ncx * ncy + 1,), dtype=torch.bool, device=dev)
-    occ[torch.where(keep, cell, ncx * ncy)] = True
+    # index_fill_ takes its value as a kernel argument (a setitem of a
+    # Python bool would upload it, which a graph capture refuses)
+    occ = torch.zeros((ncx * ncy + 1,), dtype=torch.bool,
+                      device=dev).index_fill_(
+        0, torch.where(keep, cell, ncx * ncy), True)
 
     # candidates from the map (selectPointsForProjection via refresh)
     cand_ids, cand_uv, cand_ok = cm.select_points_for_projection(

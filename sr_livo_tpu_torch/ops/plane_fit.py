@@ -41,10 +41,13 @@ import torch
 from sr_livo_tpu_torch import kernels
 from sr_livo_tpu_torch.ops import neighborhood as nb_ops
 from sr_livo_tpu_torch.ops import voxel_map as vm
+from sr_livo_tpu_torch.utils import graphs
 
-# Kernel launches per entry since the last reset_launches().
-launches = {"plane_rows": 0, "plane_assoc": 0, "knn_plane_assoc": 0,
-            "knn_plane_rows": 0}
+# Kernel launches per entry since the last reset_launches().  A launch
+# inside a captured program (utils.graphs) counts on each replay.
+launches = graphs.register_counter(
+    {"plane_rows": 0, "plane_assoc": 0, "knn_plane_assoc": 0,
+     "knn_plane_rows": 0})
 
 
 def reset_launches():
@@ -150,8 +153,9 @@ def knn_plane_rows_plain(vmap, world, location, r_world, last_trans,
                          keypts_valid, threshold_capacity, *, voxel_size,
                          max_neighbors, max_probe, nb_voxels, lam_w, lam_nb,
                          power_planarity, max_dist, min_neighbors):
-    """Plain kNN + full plane row (`models/lio.py::build_residuals` before
-    its residual cap): (h_x (Q, 6), h (Q,), good (Q,))."""
+    """Plain kNN + full plane row (the JAX package's
+    `models/lio.py::build_residuals` before its residual cap): (h_x
+    (Q, 6), h (Q,), good (Q,))."""
     neighbors, n_found = _knn_found(
         vmap, world, threshold_capacity, voxel_size=voxel_size,
         max_neighbors=max_neighbors, max_probe=max_probe,

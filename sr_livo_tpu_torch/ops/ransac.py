@@ -101,8 +101,10 @@ def fundamental_ransac(p0: torch.Tensor, p1: torch.Tensor,
     samp = num / torch.clamp(den, min=1e-12)
     inls = valid & (samp < threshold * threshold)          # (H, N)
     counts = torch.sum(inls, dim=-1)
-    best = torch.argmax(counts)
-    return torch.where(counts[best] >= 8, inls[best], valid)
+    # (1,) index, not a 0-d one: indexing with a 0-d tensor reads it back
+    # to the host, which a CUDA graph capture refuses
+    best = torch.argmax(counts, keepdim=True)
+    return torch.where(counts[best][0] >= 8, inls[best][0], valid)
 
 
 def _project(pts3d, q_cw, t_cw, intr):
@@ -166,18 +168,18 @@ def pnp_ransac(pts3d: torch.Tensor, px: torch.Tensor, valid: torch.Tensor,
     err = torch.linalg.norm(uv - px, dim=-1)
     inls = valid & (err < threshold) & (pc[..., 2] > 1e-3)
     counts = torch.sum(inls, dim=-1)
-    best = torch.argmax(counts)
+    best = torch.argmax(counts, keepdim=True)      # (1,): no host read
 
     # final refinement on the best consensus set
-    w_best = inls[best].to(pts3d.dtype)[None]
-    q_f, t_f = _gn_pose_refine(pts3d, px, w_best, q[best][None],
-                               t[best][None], intr, iters)
+    w_best = inls[best].to(pts3d.dtype)
+    q_f, t_f = _gn_pose_refine(pts3d, px, w_best, q[best], t[best], intr,
+                               iters)
     q_f, t_f = q_f[0], t_f[0]
     uv, pc = _project(pts3d, q_f, t_f, intr)
     err = torch.linalg.norm(uv - px, dim=-1)
     inl_f = valid & (err < threshold) & (pc[..., 2] > 1e-3)
 
-    ok = counts[best] >= 10
+    ok = counts[best][0] >= 10
     return (torch.where(ok, inl_f, valid),
             torch.where(ok, q_f, q_prior),
             torch.where(ok, t_f, t_prior))
