@@ -28,8 +28,8 @@ Phases, each printing one JSON line:
      association mode, with the launch counters set to 0 just before
      each run and read just after; checks ATE < 0.05 m, at most 2 failed
      registrations, `knn_plane_assoc` launched once per sweep (default
-     mode) or `knn_plane_rows` once per IEKF iteration
-     (`cache_association=False`), and no launch of the row entries and
+     mode) or `knn_plane_rows` once per round of the IEKF's masked
+     loop (`cache_association=False`), and no launch of the row entries and
      no plain kNN on the card.  Each run records the map and one sweep's
      keypoints at the end of its warm-up;
   5. fused_vs_plain — holds the fused entries (`knn_plane_assoc`,
@@ -100,20 +100,28 @@ Phases, each printing one JSON line:
      graph replays, copies, fills) on the dispatching thread, and it
      prints each captured program's graph nodes, captures, replays and
      capture seconds, and the peak reserved memory beside the allocated;
-  7b. graphs — the captured programs (`utils/graphs.py`: the IEKF
-     iteration and the vision frame, CUDA graph replays on the card):
-     (a) in both association modes on the slice's simulation, and on the
-     20 s LIVO run at `bench.make_cfg()`, every 10th program call is
-     replayed and the program's function then run eagerly on clones of
-     its buffers; outputs and state, integers and floats, must be the
-     same bits; (b) at one iteration of `cache_association=False`,
-     `knn_plane_rows` replayed inside the IEKF graph against its plain
-     version on the same inputs (GOOD_AGREE, ATOL_H, ATOL_HX); (c) graph
-     nodes, captures and capture seconds per program, peak memory, and
-     over the LIVO run's last 20 frames host launches on the dispatching
-     thread and device ops per rendered frame and the busy share.  The
-     launch counts hold as in slice and livo (a replay adds what its
-     capture launched), and the LIVO run passes the vision bars;
+  7b. graphs — the captured programs (`utils/graphs.py`: the LIO step,
+     the colored-map insert and the vision frame, CUDA graph replays on
+     the card; their loops masked rounds, `LOOP_ROUTES`): (a) the LIO
+     step in both association modes on the slice's simulation, on an
+     8 s r3live-profile bag with `retry_wider_neighborhood` on, and the
+     three programs on the 20 s LIVO run at `bench.make_cfg()`: every
+     10th program call is replayed and the program's function then run
+     eagerly on clones of its buffers; outputs and state, integers and
+     floats, must be the same bits; (b) `knn_plane_rows` at the
+     arguments of one search-mode step against its plain version
+     (GOOD_AGREE, ATOL_H, ATOL_HX); (c) graph nodes, captures and capture
+     seconds per program, peak memory, and over the LIVO run's last 20
+     frames host launches on the dispatching thread and device ops per
+     rendered frame and the busy share; (d) the device ms of each
+     program's replay and the step's stages (`graphs.mark` events in
+     the graph) over 20 frames before those, and the r3live step with
+     the retry against the same step without it; (e) a steady sweep's
+     step and colored-map insert under
+     `torch.cuda.set_sync_debug_mode("error")`.  The launch counts hold
+     as the code calls for (a replay adds what its capture launched: a
+     masked round launches its kernel too), and the LIVO run passes the
+     vision bars;
   8. longrun — the same run with the long-run parts on: the mapping
      backend (loop feedback into the filter with map rebuild, otherwise
      BackendConfig's defaults), far-voxel eviction every 20 frames and a
@@ -149,9 +157,10 @@ Phases, each printing one JSON line:
      message class (bag read, parsers, driver, native wire pack, native
      remap), and checks the gate's bars (ATE < 0.08 m, registered share
      >= 0.95, mean tracks >= 60), `knn_plane_assoc` launched once per
-     IEKF update (once per frame, twice for a frame whose weak solve
-     `retry_wider_neighborhood` re-runs) and no plain kNN call on the
-     card;
+     IEKF update of the step program (twice a frame: the re-run over the
+     widened neighbourhood of `retry_wider_neighborhood` is in the
+     program, masked where the first solve is strong) and no plain kNN
+     call on the card;
   11. demo    — `python -m sr_livo_tpu_torch.runtime.demo --device cuda
      --duration 10 --vision` in a subprocess: exit 0 and pose.txt.
   12. gate    — the port's accuracy gate (`python -m
@@ -166,7 +175,7 @@ Phases, each printing one JSON line:
      then the checks.  It fails when a quick check fails, when a
      profile's launches differ from what the code calls for
      (`gate_expected`: `knn_plane_assoc` once per IEKF update plus the
-     backend's, or `knn_plane_rows` once per IEKF iteration in
+     backend's, or `knn_plane_rows` once per IEKF round in
      `r3live_nocache`, no other entry), when the backend's differ from 2
      per BA run plus 9 per verified loop candidate, or on a plain kNN call
      on CUDA.  Then `fused_vs_plain` holds the fused entries at the gate's
@@ -185,7 +194,7 @@ of the gate's profiles; `gate_shapes`: phase `gate`'s;
 `launches_sharded` and `sharded_shapes`: phase `sharded`'s;
 `launches_scaling` and `scaling_shapes`: phase `scaling`'s;
 `launches_bench` and `bench_shape`: phase `bench`'s; `launches_graphs`:
-phase `graphs`' runs in the entry's association mode, `rows_in_graph`:
+phase `graphs`' runs in the entry's association mode, `rows_in_program`:
 its (b); `captured`: where the entry runs on the main path, inside a
 captured program or eagerly).  Then it
 prints the `{"kernels": [...]}` summary, the nvidia-smi line and, last,
@@ -252,11 +261,25 @@ REPLACES = "sr_livo_tpu/ops/pallas/plane_fit.py:229"
 # where each entry runs on the main path: inside a captured program (a
 # CUDA graph node, replayed) or launched eagerly
 CAPTURED = {
-    "knn_plane_rows": "captured: inside the IEKF iteration program "
-                      "(cache_association=False), one node per iteration",
-    "knn_plane_assoc": "eager: once per IEKF update, before the iteration "
-                       "program",
+    "knn_plane_rows": "captured: inside the LIO step program "
+                      "(cache_association=False), one node per round of "
+                      "the IEKF's masked loop",
+    "knn_plane_assoc": "captured: inside the LIO step program, one node "
+                       "per IEKF update",
     "plane_assoc": "off the main path", "plane_rows": "off the main path"}
+# How each data-dependent loop of the JAX programs runs in the port's
+# captured programs (utils/graphs.py): this PyTorch build exposes no CUDA
+# graph conditional nodes (tests/torch_cond_probe.py), so every loop with
+# rounds is masked rounds up to its proven bound.
+LOOP_ROUTES = {
+    "ops/frame.py::bucket_dedup_min": "no loop: one stable sort",
+    "ops/voxel_map.py::_insert_gate_phase_chunked":
+        "masked rounds, ceil(n / chunk)",
+    "ops/voxel_map.py::insert claim rounds": "masked rounds, max_probe + 1",
+    "ops/color_map.py::_claim_dedup": "masked rounds, max_probe + 1",
+    "models/lio.py::iekf_update": "masked rounds, max_iters + 1",
+    "models/odometry.py::_sweep_core retry": "both branches, select "
+                                             "(graphs.cond)"}
 
 
 def emit(obj) -> None:
@@ -475,15 +498,21 @@ def _programs():
     return graphs
 
 
-def eager_fn(prog):
-    """`fn` of a captured program run eagerly on its buffers, as the graph
-    would run it (it writes nothing it is given); the kernel launches it
-    makes are not counted."""
-    before = dict(plane_fit.launches)
-    try:
-        return prog.fn(prog.state, prog.inputs)
-    finally:
-        plane_fit.launches.update(before)
+def in_capture() -> bool:
+    """Whether a program is being warmed up or captured (its function's
+    calls are not the path's own; a host copy would break the capture)."""
+    return getattr(_programs(), "in_capture_form", lambda: False)()
+
+
+def eager_fn(prog, state=None, inputs=None):
+    """`fn` of a captured program run eagerly on a copy of its state (the
+    LIO step inserts into its map in place) and on its inputs, or on the
+    given ones; the counters it advances are set back."""
+    graphs = _programs()
+    with graphs.counts_kept():
+        return prog.fn(graphs.tree_map(torch.clone, prog.state)
+                       if state is None else state,
+                       prog.inputs if inputs is None else inputs)
 
 
 class Capture:
@@ -491,25 +520,29 @@ class Capture:
     `plane_fit` entry (for which `want(args, kw)` holds, if given): a copy
     of the map and of the tensors, taken before the call, kept in host
     memory so that it does not count in the run's peak device memory.
-    Every call is passed on.  A call inside a captured program makes no
+    Every call is passed on; the calls a program's warm-up and capture
+    make are not recorded.  A call inside a captured program makes no
     Python call when the graph replays, so for an entry that a program
     calls (`IN_PROGRAMS`), before each call of such a program on the
     card, until a call is recorded, the program's function runs once
-    eagerly on its buffers (`eager_fn`) for the record.
-    `args_on(device)` returns the record on a device."""
+    eagerly on a copy of its buffers (`eager_fn`) for the record; with
+    `in_programs=False` (a call made only eagerly, as the backend's) it
+    does not.  `args_on(device)` returns the record on a device."""
 
     # entry -> the name prefix of the captured programs that call it
-    IN_PROGRAMS = {"knn_plane_rows": "iekf[search"}
+    IN_PROGRAMS = {"knn_plane_rows": "lio_step",
+                   "knn_plane_assoc": "lio_step"}
 
-    def __init__(self, name: str, want=None):
-        self.name, self.args = name, None
+    def __init__(self, name: str, want=None, in_programs: bool = True):
+        self.name, self.args, self.in_programs = name, None, in_programs
         self.want = want or (lambda args, kw: True)
 
     def __enter__(self):
         self.orig = getattr(plane_fit, self.name)   # Captures may nest
 
         def spy(vmap, *args, **kw):
-            if self.args is None and self.want(args, kw):
+            if (self.args is None and not in_capture()
+                    and self.want(args, kw)):
                 self.args = (vm.VoxelMap(*(_to("cpu", t) for t in vmap)),
                              tuple(_to("cpu", a) for a in args), dict(kw))
             return self.orig(vmap, *args, **kw)
@@ -518,7 +551,8 @@ class Capture:
         self.orig_call = program.__call__
 
         def call(prog):
-            if (self.args is None and prog.device.type == "cuda"
+            if (self.args is None and self.in_programs
+                    and prog.device.type == "cuda"
                     and self.name in self.IN_PROGRAMS
                     and prog.name.startswith(self.IN_PROGRAMS[self.name])):
                 eager_fn(prog)
@@ -543,19 +577,38 @@ def _clone(x):
 class LastCapture(Capture):
     """A Capture of the last call within the block: each call's map and
     tensors are cloned on their device (a device-to-device copy, no host
-    transfer), replacing the previous call's record."""
+    transfer), replacing the previous call's record.  For an entry that a
+    program calls, the buffers of each call of such a program are cloned
+    instead, and at the end the program's function runs once eagerly on
+    the last call's clones for the record."""
 
     def __enter__(self):
         self.orig = getattr(plane_fit, self.name)
+        self.last = None
 
         def spy(vmap, *args, **kw):
-            self.args = (vm.VoxelMap(*(_clone(t) for t in vmap)),
-                         tuple(_clone(a) for a in args), dict(kw))
+            if not in_capture():
+                self.args = (vm.VoxelMap(*(_clone(t) for t in vmap)),
+                             tuple(_clone(a) for a in args), dict(kw))
             return self.orig(vmap, *args, **kw)
         setattr(plane_fit, self.name, spy)
+        graphs = _programs()
+        self.orig_call = graphs.Program.__call__
+
+        def call(prog):
+            if (prog.device.type == "cuda"
+                    and prog.name.startswith(self.IN_PROGRAMS[self.name])):
+                self.last = (prog, graphs.tree_map(_clone, prog.state),
+                             graphs.tree_map(_clone, prog.inputs))
+            return self.orig_call(prog)
+        graphs.Program.__call__ = call
         return self
 
     def __exit__(self, *exc):
+        _programs().Program.__call__ = self.orig_call
+        if self.last is not None:
+            eager_fn(*self.last)
+        self.last = None
         setattr(plane_fit, self.name, self.orig)
 
 
@@ -672,6 +725,7 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
     entry = "knn_plane_assoc" if cache_association else "knn_plane_rows"
     cfg = bench_lio_cfg(cache_association)
     plane_fit.reset_launches()
+    rounds0 = lio.counts["iterations"]
     with cuda_knn_calls() as knn_calls:
         pipe = LivoPipeline(cfg, device="cuda")
         meas = bench.cut_all(pipe, sim)
@@ -687,6 +741,7 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(plane_fit.launches)
+    rounds = lio.counts["iterations"] - rounds0
 
     recs = pipe.records
     n_fail = sum(1 for r in recs if not r.success)
@@ -695,7 +750,7 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
     ate = tum.ate_rmse(ts, ps, sim.gt_times, sim.gt_pos, align=True)
     out = {"phase": "slice", "cache_association": cache_association,
            "measurements": len(meas), "frames": len(recs),
-           "iekf_iterations": iterations,
+           "iekf_iterations": iterations, "iekf_rounds": rounds,
            "timed_frames": pipe.index_frame - n0,
            "timed_seconds": seconds,
            "sweeps_per_s": (pipe.index_frame - n0) / seconds,
@@ -707,7 +762,8 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
     emit(out)
     if not pipe.initialized or len(recs) < 100:
         raise AssertionError(f"too few frames processed: {len(recs)}")
-    want = len(recs) if cache_association else iterations
+    # with a program, every round of the masked IEKF loop launches
+    want = len(recs) if cache_association else rounds
     if launches[entry] != want:
         raise AssertionError(f"{entry} launched {launches[entry]} times, "
                              f"expected {want}")
@@ -976,8 +1032,12 @@ def profile_phase(sim, n_warm: int = 60, n_sweeps: int = 20) -> dict:
         pipe.process_measurements(meas[n_warm:n_warm + n_sweeps])
         torch.cuda.synchronize()
 
-    out = {"phase": "profile", "cache_association": True,
-           **device_profile(run), "sweeps": pipe.index_frame - n0}
+    prof = device_profile(run)
+    n = max(pipe.index_frame - n0, 1)
+    out = {"phase": "profile", "cache_association": True, **prof,
+           "sweeps": pipe.index_frame - n0,
+           "host_launches_per_sweep": prof["host_launches"] / n,
+           "device_ops_per_sweep": prof["device_events"] / n}
     emit(out)
     return out
 
@@ -1144,6 +1204,8 @@ def program_record(vision, engine) -> list:
     and the host seconds of its last capture (none in a checkout from
     before the programs)."""
     progs = list(getattr(vision, "programs", {}).values())
+    progs += list(getattr(vision, "insert_programs", {}).values())
+    progs += list(getattr(engine, "programs", {}).values())
     progs += list(getattr(engine, "iekf_programs", {}).values())
     return [{"name": p.name, "nodes": p.nodes, "captures": p.captures,
              "replays": p.replays, "capture_s": p.capture_s}
@@ -1177,20 +1239,16 @@ def compare_leaves(graphs, replayed, eager) -> dict:
 
 
 class ProgramCheck:
-    """Within the block, every `every`-th call of each captured program
-    whose name starts with `prefix` is checked: its buffers are cloned,
-    the graph replayed, then the program's function run eagerly on the
-    clones and its state written back into them (its kernel launches not
-    counted); the outputs and the state must be the same bits.  With
-    `hold_rows_at`, that call of a search-mode IEKF program also keeps
-    the graph's `knn_plane_rows` output and records the kernel's
-    arguments in the eager run (`rows`: (graph rows, Capture))."""
+    """Within the block, every `every`-th call of the captured programs
+    whose names start with `prefix` (a string or a tuple of them) is
+    checked: its buffers are cloned, the graph replayed, then the
+    program's function run eagerly on the clones and its state written
+    back into them (the counters it advances set back); the outputs and
+    the state must be the same bits."""
 
-    def __init__(self, prefix: str, every: int = 10,
-                 hold_rows_at: int = 0):
+    def __init__(self, prefix, every: int = 10):
         self.prefix, self.every = prefix, every
-        self.hold_rows_at = hold_rows_at
-        self.calls, self.checks, self.rows = 0, [], None
+        self.calls, self.checks = 0, []
 
     def __enter__(self):
         graphs = self.graphs = _programs()
@@ -1201,26 +1259,16 @@ class ProgramCheck:
                     or prog.device.type != "cuda"):
                 return self.orig_call(prog)
             self.calls += 1
-            want_rows = (self.rows is None and self.hold_rows_at
-                         and self.calls >= self.hold_rows_at
-                         and "search" in prog.name)
-            if self.calls % self.every and not want_rows:
+            if self.calls % self.every:
                 return self.orig_call(prog)
             state = graphs.tree_map(torch.clone, prog.state)
             inputs = graphs.tree_map(torch.clone, prog.inputs)
             out = self.orig_call(prog)
             replayed = (graphs.tree_map(torch.clone, prog.state),
                         graphs.tree_map(torch.clone, out))
-            before = dict(plane_fit.launches)
-            with contextlib.ExitStack() as stack:
-                cap = (stack.enter_context(Capture("knn_plane_rows"))
-                       if want_rows else None)
+            with graphs.counts_kept():
                 new_state, eager_out = prog.fn(state, inputs)
                 graphs.refill(state, new_state)
-            plane_fit.launches.update(before)
-            if want_rows:
-                self.rows = ((replayed[1].h_x, replayed[1].h,
-                              replayed[1].good), cap)
             self.checks.append({"program": prog.name, "call": self.calls,
                                 **compare_leaves(graphs, replayed,
                                                  (state, eager_out))})
@@ -1234,6 +1282,7 @@ class ProgramCheck:
     def summary(self) -> dict:
         c = self.checks
         return {"calls": self.calls, "checked": len(c),
+                "programs_checked": sorted({x["program"] for x in c}),
                 "int_differ": sum(x["int_differ"] for x in c),
                 "float_differ": sum(x["float_differ"] for x in c),
                 "float_max_abs": max((x["float_max_abs"] for x in c),
@@ -1242,70 +1291,245 @@ class ProgramCheck:
                               or x["float_differ"]][:5]}
 
 
-def graphs_phase(sim, lsim, n_profile: int = 20) -> dict:
-    """The captured programs (`utils/graphs.py`) on the card.  (a) The
-    IEKF iteration program in both association modes on phase slice's
-    simulation, and the vision frame program on the 20 s LIVO run at
-    `bench.make_cfg()`: every 10th call is replayed and its function run
-    eagerly on clones of its buffers; integers and floats must be the
-    same bits (no body holds a float atomic whose order could differ: the
-    CLAHE histogram adds exact 1.0s, and the tile-weight accumulate has no
-    repeated index).  (b) At one iteration of the search mode, the
-    `knn_plane_rows` output replayed inside the graph against its plain
-    version on the same inputs, to the bars of phase fused_vs_plain.
+class ReplayTimes:
+    """Within the block, the device ms of each captured program's call on
+    the card, from CUDA events recorded on the stream just before and
+    after it (outside its graph), and with `stages`, after each call of a
+    program captured with stage events, its stages' device ms
+    (`Program.stage_ms`, which waits for the call).  `summary()` waits
+    for the last call and gives, per program name, the calls and the
+    mean and median device ms, and the mean ms per stage."""
+
+    def __init__(self, stages: bool = False):
+        self.stages, self.events, self.split = stages, [], {}
+
+    def __enter__(self):
+        graphs = self.graphs = _programs()
+        self.orig = graphs.Program.__call__
+
+        def call(prog):
+            if prog.device.type != "cuda":
+                return self.orig(prog)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.orig(prog)
+            ev[1].record()
+            self.events.append((prog.name, *ev))
+            if self.stages and prog.marks:
+                for k, v in prog.stage_ms().items():
+                    self.split.setdefault(prog.name, {}).setdefault(
+                        k, []).append(v)
+            return out
+        graphs.Program.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.graphs.Program.__call__ = self.orig
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        by = {}
+        for name, a, b in self.events:
+            by.setdefault(name, []).append(a.elapsed_time(b))
+        out = {name: {"calls": len(v), "mean_ms": float(np.mean(v)),
+                      "median_ms": float(np.median(v))}
+               for name, v in by.items()}
+        for name, st in self.split.items():
+            out[name]["stages_ms"] = {k: float(np.mean(v))
+                                      for k, v in st.items()}
+        return out
+
+
+def replay_ms(prog, state0, n: int = 20) -> float:
+    """Median device ms of `n` replays of a captured program, each from
+    the state `state0` (copied in first, outside the timed events)."""
+    graphs = _programs()
+    ms = []
+    for _ in range(n):
+        graphs.refill(prog.state, state0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        prog()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return float(np.median(ms))
+
+
+def steady_program(engine):
+    """The engine's step program past init with the most replays (the
+    `steady` or, on the dense grid, the `steady_dense` one)."""
+    return max((p for k, p in engine.programs.items() if k[0] != "init"),
+               key=lambda p: p.replays)
+
+
+def retry_cost(pipe, cfg) -> dict:
+    """The r3live steady step with `retry_wider_neighborhood` (both
+    branches run, `graphs.cond`) against the same step without it, on
+    the run's last steady sweep and state: device ms of a replay each."""
+    import dataclasses
+    graphs = _programs()
+    prog = steady_program(pipe.engine)
+    state0 = graphs.tree_map(torch.clone, prog.state)
+    off_cfg = dataclasses.replace(cfg, retry_wider_neighborhood=False)
+    off = LivoPipeline(off_cfg, device="cuda").engine
+    inp = prog.inputs
+    off.step(*graphs.tree_map(torch.clone, state0), inp.sweep,
+             pipe.index_frame, prev_poses=inp.prev_poses)
+    with graphs.counts_kept():
+        on_ms = replay_ms(prog, state0)
+        off_ms = replay_ms(steady_program(off), state0)
+    graphs.refill(prog.state, state0)
+    return {"step_ms_with_retry": on_ms, "step_ms_without_retry": off_ms,
+            "retry_ms": on_ms - off_ms}
+
+
+def no_sync_step(pipe, vision) -> str:
+    """A steady sweep's `LioEngine.step` and colored-map insert (both
+    captured already) under `set_sync_debug_mode("error")`: "" or what
+    raised."""
+    graphs = _programs()
+    prog = steady_program(pipe.engine)
+    sweep = graphs.tree_map(torch.clone, prog.inputs.sweep)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipe.engine.step(pipe.state, pipe.voxel_map, sweep,
+                               pipe.index_frame)
+        vision.insert_sweep_points(out.frame_pts_world, out.frame_valid,
+                                   out.summary.success, 1e3)
+        return ""
+    except RuntimeError as e:
+        return repr(e)[:400]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
+    """The captured programs (`utils/graphs.py`) on the card, their loops
+    masked rounds (`LOOP_ROUTES`).  (a) The LIO step program in both
+    association modes on phase slice's simulation, on an 8 s
+    r3live-profile bag (no images) with `retry_wider_neighborhood`, and
+    the step, colored-map insert and vision frame programs on the 20 s
+    LIVO run at `bench.make_cfg()`: every 10th call is replayed and its
+    function run eagerly on clones of its buffers; integers and floats
+    must be the same bits (no body holds a float atomic whose order could
+    differ: the CLAHE histogram adds exact 1.0s, and the tile-weight
+    accumulate has no repeated index).  (b) `knn_plane_rows` at the
+    arguments of a search-mode step (its 200th call in the eager runs)
+    against its plain version, to the bars of phase fused_vs_plain.
     (c) Graph nodes, captures, replays and capture seconds per program,
     the peak device memory, and over the LIVO run's last `n_profile`
     frames (unchecked) host launches on the dispatching thread and device
-    ops per rendered frame, and the device's busy share.  Launch counts
-    hold as in phases slice and livo."""
-    out = {"phase": "graphs"}
+    ops per rendered frame, and the device's busy share.  (d) Over the
+    `n_split` frames before those, each program's replay in device ms and
+    the step's stages (in-graph events), and the r3live step's device ms
+    with and without the retry.  (e) No synchronizing call in a steady
+    sweep's step and colored-map insert.  Launches: one `knn_plane_assoc`
+    per IEKF update and one `knn_plane_rows` per IEKF round as
+    `lio.counts` counts them (a replay adds its capture's)."""
+    import tempfile
+    graphs = _programs()
+    out = {"phase": "graphs", "loop_routes": LOOP_ROUTES,
+           "if_node_api": hasattr(torch.cuda.CUDAGraph,
+                                  "begin_capture_to_if_node")}
     bad = []
+
+    def launch_check(tag, launches, c0, frames, retry=False):
+        upd = lio.counts["updates"] - c0["updates"]
+        rounds = lio.counts["iterations"] - c0["iterations"]
+        want = dict.fromkeys(launches, 0)
+        if launches["knn_plane_rows"]:
+            want["knn_plane_rows"] = rounds
+        else:
+            want["knn_plane_assoc"] = upd
+        if launches != want or upd != (2 if retry else 1) * frames:
+            bad.append(f"{tag}: launches {launches} in {frames} frames, "
+                       f"{upd} updates and {rounds} rounds")
+        return {"iekf_updates": upd, "iekf_rounds": rounds}
+
+    def check_failures(tag, chk):
+        if chk["int_differ"] or chk["float_differ"]:
+            bad.append(f"{tag}: replay differs from the eager function: "
+                       f"{chk['differing']}")
+        if not chk["checked"]:
+            bad.append(f"{tag}: nothing checked")
+
     for cache in (True, False):
-        entry = "knn_plane_assoc" if cache else "knn_plane_rows"
         cfg = bench_lio_cfg(cache)
         plane_fit.reset_launches()
-        it0 = lio.counts["iterations"]
-        with ProgramCheck("iekf", hold_rows_at=0 if cache else 200) as chk:
+        c0 = dict(lio.counts)
+        with ProgramCheck("lio_step") as chk, \
+                contextlib.ExitStack() as stack:
+            cap = (None if cache else stack.enter_context(
+                Capture("knn_plane_rows", nth_call(200))))
             pipe = LivoPipeline(cfg, device="cuda")
             pipe.process_measurements(bench.cut_all(pipe, sim))
             torch.cuda.synchronize()
-        iterations = lio.counts["iterations"] - it0
         launches = dict(plane_fit.launches)
-        rec = {"checks": chk.summary(), "iekf_iterations": iterations,
-               "frames": len(pipe.records), "launches": launches,
+        rec = {"checks": chk.summary(), "frames": len(pipe.records),
+               "iekf_iterations": sum(r.iterations for r in pipe.records),
+               "launches": launches,
+               **launch_check(f"lio step ({cache=})", launches, c0,
+                              len(pipe.records)),
                "programs": program_record(None, pipe.engine)}
-        want = len(pipe.records) if cache else iterations
-        if launches[entry] != want:
-            bad.append(f"{entry} launched {launches[entry]} times in the "
-                       f"{'assoc' if cache else 'search'} run, want {want}")
         if not cache:
-            if chk.rows is None or chk.rows[1].args is None:
-                bad.append("no knn_plane_rows call held inside the graph")
+            if cap.args is None:
+                bad.append("no knn_plane_rows call held in a step")
             else:
-                graph_rows, cap = chk.rows
                 vmap, args, kw = cap.args_on(torch.device("cuda"))
-                rec["rows_in_graph"] = {
+                rec["rows_in_program"] = {
                     "q": args[0].shape[0], "nb_voxels": kw["nb_voxels"],
                     "n_valid": int(args[4].sum()),
                     "max_abs_err": hold_rows(
-                        kw, graph_rows,
+                        kw, plane_fit.knn_plane_rows(vmap, *args, **kw),
                         plane_fit.knn_plane_rows_plain(vmap, *args, **kw))}
-        out["iekf_" + ("assoc" if cache else "search")] = rec
-        if rec["checks"]["int_differ"] or rec["checks"]["float_differ"]:
-            bad.append(f"iekf ({entry}): replay differs from the eager "
-                       f"function: {rec['checks']['differing']}")
-        if not rec["checks"]["checked"]:
-            bad.append(f"iekf ({entry}): nothing checked")
+        out["lio_" + ("assoc" if cache else "search")] = rec
+        check_failures(f"lio step ({cache=})", rec["checks"])
+
+    cfg = r3live_cfg()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "r3live.bag")
+        r3live_bag(path, 8.0, 11, "cuda", images=False)
+        plane_fit.reset_launches()
+        c0 = dict(lio.counts)
+        with ProgramCheck("lio_step") as chk:
+            pipe = LivoPipeline(cfg, device="cuda")
+            drivers.replay_bag(pipe, path, cfg, *R3_TOPICS,
+                               image_type=drivers.IMAGE_TYPE_RGB8)
+            torch.cuda.synchronize()
+    launches = dict(plane_fit.launches)
+    rec = {"checks": chk.summary(), "frames": len(pipe.records),
+           "registered": sum(r.success for r in pipe.records),
+           "launches": launches,
+           **launch_check("r3live retry", launches, c0, len(pipe.records),
+                          retry=True),
+           "programs": program_record(None, pipe.engine),
+           **retry_cost(pipe, cfg)}
+    out["lio_r3live_retry"] = rec
+    check_failures("r3live retry", rec["checks"])
+    del pipe
 
     cfg = bench.make_cfg()
     plane_fit.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    with ProgramCheck("vision_frame") as chk:
-        vision = VisionModule(cfg, device="cuda")
-        pipe = LivoPipeline(cfg, vision=vision, device="cuda")
-        meas = bench.cut_all(pipe, lsim)
-        pipe.process_measurements(meas[:len(meas) - n_profile])
-        torch.cuda.synchronize()
+    c0 = dict(lio.counts)
+    graphs.stage_events(True)
+    try:
+        with ProgramCheck(("vision_frame", "lio_step",
+                           "color_insert")) as chk:
+            vision = VisionModule(cfg, device="cuda")
+            pipe = LivoPipeline(cfg, vision=vision, device="cuda")
+            meas = bench.cut_all(pipe, lsim)
+            pipe.process_measurements(meas[:len(meas) - n_profile - n_split])
+            torch.cuda.synchronize()
+    finally:
+        graphs.stage_events(False)
+    split = meas[len(meas) - n_profile - n_split:len(meas) - n_profile]
+    with ReplayTimes(stages=True) as times:
+        pipe.process_measurements(split)
+    replays = times.summary()
     rest = meas[len(meas) - n_profile:]
     n_rendered = sum(1 for m in rest if m.rendering and m.image is not None)
 
@@ -1317,7 +1541,9 @@ def graphs_phase(sim, lsim, n_profile: int = 20) -> dict:
     launches = dict(plane_fit.launches)
     rec = {"checks": chk.summary(), "frames": len(pipe.records),
            "rendered_frames": len(vision.stats), "launches": launches,
+           **launch_check("livo", launches, c0, len(pipe.records)),
            "programs": program_record(vision, pipe.engine),
+           "replay_device_ms": replays,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
            "profile": {"frames": len(rest), "rendered_frames": n_rendered,
@@ -1326,16 +1552,17 @@ def graphs_phase(sim, lsim, n_profile: int = 20) -> dict:
                        "device_ops_per_rendered_frame":
                            prof["device_events"] / max(n_rendered, 1),
                        **prof}}
-    out["vision"] = rec
-    if rec["checks"]["int_differ"] or rec["checks"]["float_differ"]:
-        bad.append("vision frame: replay differs from the eager function: "
-                   f"{rec['checks']['differing']}")
-    if rec["checks"]["checked"] < 5:
-        bad.append(f"vision frame: {rec['checks']['checked']} frames checked")
-    if launches["knn_plane_assoc"] != len(pipe.records):
-        bad.append(f"knn_plane_assoc launched {launches['knn_plane_assoc']} "
-                   f"times in {len(pipe.records)} LIVO frames")
     bad += vision_bar_failures(livo_checks(pipe, vision, lsim))
+    rec["no_sync_error"] = no_sync_step(pipe, vision)
+    out["livo"] = rec
+    check_failures("livo programs", rec["checks"])
+    names = {c["program"].split("[")[0] for c in chk.checks}
+    if names != {"vision_frame", "lio_step", "color_insert"}:
+        bad.append(f"livo: checked only {sorted(names)}")
+    if rec["no_sync_error"]:
+        bad.append(f"a steady sweep synchronized: {rec['no_sync_error']}")
+    if not replays.get("lio_step[steady]", {}).get("stages_ms"):
+        bad.append("no stage split of the steady step")
     emit(out)
     if bad:
         raise AssertionError("graphs phase: " + "; ".join(bad))
@@ -1443,8 +1670,10 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         with cuda_knn_calls() as knn_calls, \
                 BackendLaunches() as backend_calls, \
-                Capture("knn_plane_assoc", _is_ba) as cap_ba, \
-                Capture("knn_plane_assoc", _is_loop) as cap_loop:
+                Capture("knn_plane_assoc", _is_ba,
+                        in_programs=False) as cap_ba, \
+                Capture("knn_plane_assoc", _is_loop,
+                        in_programs=False) as cap_loop:
             backend = MappingBackend(BackendConfig(feedback_to_filter=True),
                                      device="cuda")
             backend_launches = backend_calls.launches
@@ -1500,6 +1729,8 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
            "backend_ms": {k: stages["backend"][k]
                           for k in ("mean_ms", "max_ms", "count")},
            "stages_ms": {k: v["mean_ms"] for k, v in stages.items()},
+           "stages_max_ms": {k: v["max_ms"] for k, v in stages.items()},
+           "programs": program_record(vision, pipe.engine),
            "pose_graph_solve_ms": solve_ms,
            "pose_graph_pcg": pcg_solve_ms(),
            "peak_memory_bytes": peak,
@@ -1773,8 +2004,9 @@ def replay_phase(duration: float = 20.0, seed: int = 11,
     time and sweeps+images/s, and the host ms per message class.  Fails
     at an ATE of 0.08 m or more, a registered share below 0.95, mean
     tracks below 60, `knn_plane_assoc` launches other than the IEKF
-    updates (one per frame, and one more for each frame whose weak solve
-    `retry_wider_neighborhood` re-runs over the widened neighbourhood),
+    updates (`lio.counts`: on the card two a frame, the step program
+    holding the re-run over the widened neighbourhood of
+    `retry_wider_neighborhood`, masked where the first solve is strong),
     any other entry or a plain kNN call on CUDA."""
     import tempfile
 
@@ -1791,8 +2023,8 @@ def replay_phase(duration: float = 20.0, seed: int = 11,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         plane_fit.reset_launches()
-        with cuda_knn_calls() as knn_calls, HostTimes() as host, \
-                Spy((lio, "iekf_update", "iekf_update")) as updates:
+        updates0 = lio.counts["updates"]
+        with cuda_knn_calls() as knn_calls, HostTimes() as host:
             t0 = time.perf_counter()
             drivers.replay_bag(pipe, path, cfg, *R3_TOPICS,
                                image_type=drivers.IMAGE_TYPE_RGB8)
@@ -1800,6 +2032,7 @@ def replay_phase(duration: float = 20.0, seed: int = 11,
                 torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         launches = dict(plane_fit.launches)
+        n_updates = lio.counts["updates"] - updates0
 
     recs = pipe.records
     ts, ps, _ = pipe.trajectory()
@@ -1822,8 +2055,7 @@ def replay_phase(duration: float = 20.0, seed: int = 11,
            "host_ms": host.ms, "host_calls": host.calls,
            "host_ms_per_call": {k: host.ms[k] / max(host.calls[k], 1)
                                 for k in host.ms},
-           "iekf_updates": updates.n,
-           "retried_frames": updates.n - len(recs),
+           "iekf_updates": n_updates,
            "launches": launches, "plain_knn_calls_on_cuda": knn_calls.n,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                  if on_cuda else None)}
@@ -1837,13 +2069,13 @@ def replay_phase(duration: float = 20.0, seed: int = 11,
         bad.append(f"mean tracks {out['mean_tracks']}")
     if not pipe.initialized or len(recs) < 5 * duration:
         bad.append(f"{len(recs)} frames")
-    if not len(recs) <= updates.n <= 2 * len(recs):
-        bad.append(f"{updates.n} IEKF updates in {len(recs)} frames")
+    if not len(recs) <= n_updates <= 2 * len(recs):
+        bad.append(f"{n_updates} IEKF updates in {len(recs)} frames")
     if on_cuda:
-        if launches["knn_plane_assoc"] != updates.n:
+        if launches["knn_plane_assoc"] != n_updates:
             bad.append(f"knn_plane_assoc launched "
                        f"{launches['knn_plane_assoc']} times in "
-                       f"{updates.n} IEKF updates")
+                       f"{n_updates} IEKF updates")
         others = {k: v for k, v in launches.items()
                   if k != "knn_plane_assoc" and v}
         if others or knn_calls.n:
@@ -1915,10 +2147,12 @@ GATE_SHAPES = {
 def gate_expected(rec: dict, cache_association: bool, backend: dict,
                   n_verified: int) -> tuple:
     """The launches per entry that the code calls for in one gate profile
-    (models/lio.py::iekf_update): with `cache_association`, one
-    `knn_plane_assoc` per IEKF update (a frame's first, and the re-run of
-    its weak solve) plus the backend's own (`backend`); without, one
-    `knn_plane_rows` per IEKF iteration, re-runs included.  The backend's
+    (models/lio.py::iekf_update, as `lio.counts` counts it): with
+    `cache_association`, one `knn_plane_assoc` per IEKF update (a frame's
+    first, and in the step program the re-run over the widened
+    neighbourhood, masked where the first solve is strong) plus the
+    backend's own (`backend`); without, one `knn_plane_rows` per round of
+    the IEKF's masked loop, the re-run's included.  The backend's
     are 2 per BA run plus 9 per verified loop candidate.  Returns (the
     expected launches, the backend's expected knn_plane_assoc)."""
     want = dict.fromkeys(plane_fit.launches, 0)
@@ -2058,14 +2292,13 @@ def record_single_run(sim, cfg: LivoConfig) -> tuple:
            "seconds": []}
     orig = pipe.engine.step
 
-    def step(state, vmap, sweep, frame_id, prev_poses=None, gyr_rate=0.0,
-             timers=None):
+    def step(state, vmap, sweep, frame_id, prev_poses=None, gyr_rate=0.0):
         if log["first_state"] is None:
             log["first_state"] = eskf_mod.map_state(torch.clone, state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = orig(state, vmap, sweep, frame_id, prev_poses=prev_poses,
-                   gyr_rate=gyr_rate, timers=timers)
+                   gyr_rate=gyr_rate)
         torch.cuda.synchronize()
         log["seconds"].append(time.perf_counter() - t0)
         log["sweeps"].append(sweep)
@@ -2769,8 +3002,8 @@ def main() -> int:
             "launches_replay": replay["launches"][name],
             "launches_gate": gated["launches"][name],
             "launches_bench": benched["launches"][name],
-            "launches_graphs": graphed["iekf_assoc" if cache
-                                       else "iekf_search"]["launches"][name],
+            "launches_graphs": graphed["lio_assoc" if cache
+                                       else "lio_search"]["launches"][name],
             "captured": CAPTURED[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
@@ -2786,7 +3019,7 @@ def main() -> int:
     summary[0]["launches_scaling"] = scaling["launched"]["knn_plane_assoc"]
     summary[0]["scaling_shapes"] = scaling["shapes"]
     summary[0]["bench_shape"] = benched["shape"]
-    summary[1]["rows_in_graph"] = graphed["iekf_search"]["rows_in_graph"]
+    summary[1]["rows_in_program"] = graphed["lio_search"]["rows_in_program"]
     for entry in summary[:2]:
         entry["gate_shapes"] = {
             k: v for k, v in gated["shapes"].items()

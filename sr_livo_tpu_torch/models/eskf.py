@@ -257,16 +257,17 @@ def predict_sweep(state: EskfState, noise: torch.Tensor,
 
     # Final nominal state + last-sample bookkeeping (suffix padding: the
     # last valid sample's raw IMU values become acc_0/gyr_0).
-    n_valid = torch.sum(valid.to(torch.int64))
-    any_valid = n_valid > 0
+    # (a (1,) index: a 0-d tensor index reads the host)
+    n_valid = torch.sum(valid.to(torch.int64), 0, keepdim=True)
+    any_valid = n_valid[0] > 0
     idx_last = torch.clamp(n_valid - 1, min=0)
     final = state._replace(
-        p=torch.where(any_valid, p_post[idx_last], state.p),
-        q=torch.where(any_valid, q_post[idx_last], state.q),
-        v=torch.where(any_valid, v_post[idx_last], state.v),
+        p=torch.where(any_valid, p_post[idx_last][0], state.p),
+        q=torch.where(any_valid, q_post[idx_last][0], state.q),
+        v=torch.where(any_valid, v_post[idx_last][0], state.v),
         cov=torch.where(any_valid, cov_new, state.cov),
-        acc_0=torch.where(any_valid, accs[idx_last], state.acc_0),
-        gyr_0=torch.where(any_valid, gyrs[idx_last], state.gyr_0))
+        acc_0=torch.where(any_valid, accs[idx_last][0], state.acc_0),
+        gyr_0=torch.where(any_valid, gyrs[idx_last][0], state.gyr_0))
 
     imu_states = ImuStates(t=t_rel, un_acc=un_acc_world, un_gyr=un_gyr,
                            p=p_post, q=q_post, v=v_post, valid=valid)

@@ -72,6 +72,14 @@ class FrameInputs(NamedTuple):
     noise_pnp: torch.Tensor         # (PNP_HYPOTHESES, M)
 
 
+class InsertInputs(NamedTuple):
+    """The colored-map insert program's per-sweep inputs."""
+    pts_world: torch.Tensor         # (F, 3) registered world points
+    frame_valid: torch.Tensor       # (F,) bool
+    success: torch.Tensor           # () bool
+    obs_time: torch.Tensor          # () f32
+
+
 class VisionModule:
     """Owns the camera state, the colored map, the tracks and the previous
     frame's pyramid, on one device (default "cuda").
@@ -87,9 +95,10 @@ class VisionModule:
     `_fused_frame_core`): one CUDA graph replay on the card, keyed by
     whether the host remap ran, as the JAX package keys its fused jit.
     The program's state buffers are the module's camera, colored map,
-    tracks and previous pyramid, which it updates IN PLACE; a tensor that
-    eager code replaces (the colored-map insert, a checkpoint load) is
-    copied into its buffer before the next frame.
+    tracks and previous pyramid, which it updates IN PLACE.  Every sweep's
+    colored-map insert is a program of its own over the same colored map
+    (`_gated_insert`).  A tensor that eager code replaces (a checkpoint
+    load) is copied into its buffer before the next call.
     """
 
     def __init__(self, cfg: LivoConfig, device="cuda",
@@ -151,6 +160,7 @@ class VisionModule:
         self.generator = torch.Generator(device=self.device).manual_seed(7)
         self.noise_hook = noise_hook
         self.programs: dict = {}         # remapped -> the frame program
+        self.insert_programs: dict = {}  # point count -> the insert program
         # (t, n_tracked, n_inlier) per rendering frame; the per-frame counts
         # stay one device vector each until first read (one batched copy).
         self._stats: list = []
@@ -167,18 +177,40 @@ class VisionModule:
                             frame_valid: torch.Tensor, success: torch.Tensor,
                             obs_time: float):
         """The success gate, the add_point_step stride and the insert."""
-        self.color_map, self.n_new_visited = self._gated_insert(
-            self.color_map, pts_world, frame_valid, success,
-            self._scalar(obs_time))
+        self._gated_insert(pts_world, frame_valid, success, obs_time)
 
-    def _gated_insert(self, cmap, pts_world, frame_valid, success, obs_time):
-        mo = self.cfg.map_options
-        return gated_color_insert(
-            cmap, pts_world, frame_valid, success, obs_time,
-            step=mo.add_point_step, voxel_size=mo.size_voxel_map,
-            min_distance=mo.min_distance_points,
-            max_probe=self.cfg.shapes.map_max_probe,
-            budget=self.cfg.shapes.max_insert_points)
+    def _gated_insert(self, pts_world, frame_valid, success, obs_time: float):
+        """The colored-map insert as one program (`insert_fn`), the
+        counterpart of the JAX package's jitted `color_insert` with the map
+        donated: its state is the module's colored map, updated IN PLACE,
+        its inputs the sweep's points, mask, success flag and time.  Sets
+        `n_new_visited`, the program's output (the next insert overwrites
+        it; the frame program copies it in before then)."""
+        inputs = InsertInputs(pts_world, frame_valid, success,
+                              self._scalar(obs_time))
+        key = tuple(pts_world.shape)
+        prog = self.insert_programs.get(key)
+        if prog is None:
+            prog = self.insert_programs[key] = graphs.Program(
+                self.insert_fn(), self.color_map,
+                graphs.tree_map(torch.clone, inputs), name="color_insert")
+        else:
+            graphs.refill(prog.state, self.color_map)
+            graphs.refill(prog.inputs, inputs)
+        self.n_new_visited = prog()
+        self.color_map = prog.state
+
+    def insert_fn(self):
+        """The colored-map insert program's function: fn(ColorMap,
+        InsertInputs) -> (ColorMap, n_new_visited)."""
+        mo, sh = self.cfg.map_options, self.cfg.shapes
+        kw = dict(step=mo.add_point_step, voxel_size=mo.size_voxel_map,
+                  min_distance=mo.min_distance_points,
+                  max_probe=sh.map_max_probe, budget=sh.max_insert_points)
+
+        def fn(cmap, inputs: InsertInputs):
+            return gated_color_insert(cmap, *inputs, **kw)
+        return fn
 
     # -- preprocessing --------------------------------------------------
     def _preprocess_dev(self, img_u8: torch.Tensor, remapped: bool):
@@ -289,10 +321,9 @@ class VisionModule:
         # device work when the timers synchronize)
         with timers.stage("vis_step"):
             with timers.stage("vis_insert"):
-                self.color_map, self.n_new_visited = self._gated_insert(
-                    self.color_map, sweep_out.frame_pts_world,
-                    sweep_out.frame_valid, sweep_out.summary.success,
-                    self._scalar(obs_time))
+                self._gated_insert(sweep_out.frame_pts_world,
+                                   sweep_out.frame_valid,
+                                   sweep_out.summary.success, obs_time)
                 timers.synchronize()
             with timers.stage("vis_track"):
                 # preprocess + pyramid + vision step: one program
@@ -349,8 +380,8 @@ class VisionModule:
         package's `_preprocess_from_u8` when the host remap ran, else
         with the device undistort), the LK pyramid of the frame and the
         vision step (`_vision_step_core`).  The colored-map insert that
-        opens the JAX program stays eager here (its claim rounds read the
-        host); its `n_new_visited` comes in `inputs`.  Returns
+        opens the JAX program is a program of its own here
+        (`_gated_insert`); its `n_new_visited` comes in `inputs`.  Returns
         (FrameState, stats (8,) int64); reads nothing back to the host."""
         rgb, gray = self._preprocess_dev(inputs.img_u8, remapped)
         cur_pyr = lk.precompute_frame(gray, self.lk_params.levels)

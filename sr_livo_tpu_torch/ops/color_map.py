@@ -27,7 +27,7 @@ import torch
 
 from sr_livo_tpu_torch.ops import image_ops
 from sr_livo_tpu_torch.ops import voxel_map as vm
-from sr_livo_tpu_torch.utils import lie
+from sr_livo_tpu_torch.utils import graphs, lie
 
 # Render constants (rgbMapTracker.cpp:176-177 / cloudMap.cpp:56-57).
 IMAGE_OBS_COV = 15.0
@@ -145,9 +145,15 @@ def _claim_dedup(dedup_sig: torch.Tensor, coords: torch.Tensor,
     absent cell (and is the batch winner for it).  Scatter-min arbitration
     elects one winner per cell; a same-cell loser matches the winner's
     signature on its next probe and resolves as a duplicate.  Claim rounds
-    run to a fixpoint (one host read per round, as in voxel_map.insert): a
-    valid non-duplicate point is dropped only when its whole probe chain
-    is full.  `dedup_sig` is not modified."""
+    run to a fixpoint: a valid non-duplicate point is dropped only when
+    its whole probe chain is full.  `dedup_sig` is not modified.
+
+    The JAX `while_loop` (sr_livo_tpu/ops/color_map.py:160) as masked
+    rounds, at most max_probe + 1 of them by voxel_map.insert's argument:
+    cells only fill, and a point that loses a round lost its first empty
+    cell to that round's winner, so its first empty probe index grows by
+    at least one a round until none is left and it resolves as dropped
+    (`utils.graphs.go_on`)."""
     cap = dedup_sig.shape[0]
     n = coords.shape[0]
     dev = coords.device
@@ -159,7 +165,9 @@ def _claim_dedup(dedup_sig: torch.Tensor, coords: torch.Tensor,
     sig = torch.cat([dedup_sig, dedup_sig.new_full((1,), vm.SIG_EMPTY)])
     is_new = torch.zeros((n,), dtype=torch.bool, device=dev)
     resolved = ~valid
-    while not bool(resolved.all()):
+    for _ in range(max_probe + 1):
+        if not graphs.go_on(~resolved.all()):
+            break
         g = sig[cand]
         match = torch.any(g == want[:, None], dim=-1)
         empty = g == vm.SIG_EMPTY

@@ -28,17 +28,23 @@ def make_point_alpha(t_rel: torch.Tensor, duration) -> torch.Tensor:
     return torch.clamp(alpha, 0.0, 1.0 - 1e-5)
 
 
+def _last_valid(valid: torch.Tensor) -> torch.Tensor:
+    """(1,) index of the last of the valid-prefix rows (0 when none): a
+    (1,) index, since a 0-d tensor index reads the host."""
+    return torch.clamp(torch.sum(valid.to(torch.int64), 0, keepdim=True) - 1,
+                       min=0)
+
+
 def undistort_constant(raw_pts: torch.Tensor, t_rel: torch.Tensor,
                        imu_states: ImuStates,
                        r_il: torch.Tensor, t_il: torch.Tensor) -> torch.Tensor:
     """Constant-velocity de-skew (distortFrameByConstant, utility.cpp:203-236):
     each point moves to the world frame with the slerp of the sweep's
     begin/end IMU poses at its capture time.  Returns (N, 3)."""
-    idx_last = torch.clamp(torch.sum(imu_states.valid.to(torch.int64)) - 1,
-                           min=0)
+    idx_last = _last_valid(imu_states.valid)
     q0, t0 = imu_states.q[0], imu_states.p[0]
-    q1, t1 = imu_states.q[idx_last], imu_states.p[idx_last]
-    t_end = imu_states.t[idx_last]
+    q1, t1 = imu_states.q[idx_last][0], imu_states.p[idx_last][0]
+    t_end = imu_states.t[idx_last][0]
     alpha = torch.clamp(t_rel / torch.clamp(t_end, min=1e-9), 0.0, 1.0)
     n = raw_pts.shape[0]
     q_a = lie.slerp(q0.expand(n, 4), q1.expand(n, 4), alpha)
@@ -81,9 +87,8 @@ def to_end_frame(imu_pts: torch.Tensor, imu_states: ImuStates,
                  r_il: torch.Tensor, t_il: torch.Tensor) -> torch.Tensor:
     """Re-express de-skewed world points in the end-of-sweep LiDAR frame
     (transformAllImuPoint, utility.cpp:320-332)."""
-    idx_last = torch.clamp(torch.sum(imu_states.valid.to(torch.int64)) - 1,
-                           min=0)
-    q_end, p_end = imu_states.q[idx_last], imu_states.p[idx_last]
+    idx_last = _last_valid(imu_states.valid)
+    q_end, p_end = imu_states.q[idx_last][0], imu_states.p[idx_last][0]
     body = lie.quat_rotate(lie.quat_conj(q_end)[None, :], imu_pts - p_end)
     return (body - t_il) @ r_il  # == R_il^T @ (body - t_il), batched
 
@@ -96,14 +101,10 @@ def transform_to_world(raw_pts: torch.Tensor, q: torch.Tensor,
     return lie.quat_rotate(q.expand(raw_pts.shape[0], 4), pts_imu) + t
 
 
-# int32 hash constants of the JAX package (voxel-key primes and the
-# bucket round salts, the latter the int32 bit patterns of 2654435769 and
-# 2246822519).  Products are formed in int64; only their low bits are used.
+# int32 voxel-key primes of the JAX package.  Products are formed in
+# int64; only their low bits are used.
 _SP1, _SP2, _SP3 = 73856093, 19349669, 83492791
 _KEY_INVALID = 0x7FFFFFFF
-_R1 = -1640531527
-_R2 = -2048144777
-_MASK32 = 0xFFFFFFFF
 
 
 def _voxel_key(pts: torch.Tensor, voxel_size: float) -> torch.Tensor:
@@ -113,47 +114,30 @@ def _voxel_key(pts: torch.Tensor, voxel_size: float) -> torch.Tensor:
     return (h & 0x7FFFFFFE).to(torch.int32)
 
 
-def _next_pow2(x: int) -> int:
-    return 1 << max(int(x) - 1, 1).bit_length()
-
-
 def bucket_dedup_min(h: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor,
                      table_size: int = None) -> torch.Tensor:
     """Winner mask of a key-grouped argmin: for each distinct key `h`
     (non-negative int32) among valid rows, True at the single row with
-    the minimum `pri` (priorities must be unique per row).
+    the minimum `pri` (non-negative int32, unique per row).
 
-    Claim rounds on a scatter-min bucket table, as in the JAX package:
-    each round every unresolved row probes a round-salted bucket, the
-    minimum key per bucket wins and its whole group resolves (its min-pri
-    row is the winner); losers re-probe.  The result is the exact argmin
-    per key whatever the bucket layout.
-    """
+    The JAX package finds it with claim rounds on a scatter-min bucket
+    table, a `while_loop` whose round count depends on the data; its
+    result, the exact argmin per key, does not depend on the bucket
+    layout.  Here one sort gives the same mask with no loop: valid rows
+    ordered by the int64 key `h << 32 | pri` (invalid rows last) put each
+    key's rows together, its minimum-`pri` row first.  `table_size` is the
+    JAX package's bucket-table size; the sort needs none."""
+    del table_size
     n = h.shape[0]
-    T = table_size or min(_next_pow2(2 * n), 1 << 21)
-    h64 = h.to(torch.int64)
-    pri32 = pri.to(torch.int32)
-    resolved = torch.zeros(n, dtype=torch.bool, device=h.device)
-    winner = torch.zeros(n, dtype=torch.bool, device=h.device)
-    r = 0
-    while True:
-        live = valid & ~resolved
-        if not bool(live.any()):
-            return winner
-        salt = (r * _R1) & _MASK32
-        slot = (((h64 ^ salt) * _R2) & (T - 1))
-        # one spare slot at index T absorbs the rows that do not probe
-        tgt = torch.where(live, slot, T)
-        a = torch.full((T + 1,), _KEY_INVALID, dtype=torch.int32,
-                       device=h.device).scatter_reduce_(0, tgt, h, "amin")
-        in_grp = live & (a[slot] == h)
-        b = torch.full((T + 1,), 0x7FFFFFFF, dtype=torch.int32,
-                       device=h.device).scatter_reduce_(
-            0, torch.where(in_grp, slot, T), pri32, "amin")
-        win_r = in_grp & (b[slot] == pri32)
-        resolved = resolved | in_grp
-        winner = winner | win_r
-        r += 1
+    key = torch.where(valid, (h.to(torch.int64) << 32) | pri.to(torch.int64),
+                      torch.full((), torch.iinfo(torch.int64).max,
+                                 dtype=torch.int64, device=h.device))
+    order = torch.sort(key, stable=True).indices
+    h_sorted = key[order] >> 32
+    first = torch.ones(n, dtype=torch.bool, device=h.device)
+    first[1:] = h_sorted[1:] != h_sorted[:-1]
+    return torch.zeros(n, dtype=torch.bool, device=h.device).scatter_(
+        0, order, first & valid[order])
 
 
 @functools.lru_cache(maxsize=8)
@@ -193,9 +177,8 @@ def voxel_subsample(key_pts: torch.Tensor, valid: torch.Tensor,
     else:
         pri = priority.to(device=dev, dtype=torch.int64)
         # rank in priority order via one histogram + cumsum
-        flags = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        flags[torch.where(winner, pri, n)] = 1
-        flags = flags[:n]
+        flags = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_fill_(
+            0, torch.where(winner, pri, n), 1)[:n]
         prefix = torch.cumsum(flags, 0) - flags
         rank = prefix[pri]
     ok = winner & (rank < max_out)

@@ -155,7 +155,13 @@ def knn_plane_rows_plain(vmap, world, location, r_world, last_trans,
                          power_planarity, max_dist, min_neighbors):
     """Plain kNN + full plane row (the JAX package's
     `models/lio.py::build_residuals` before its residual cap): (h_x
-    (Q, 6), h (Q,), good (Q,))."""
+    (Q, 6), h (Q,), good (Q,)).  With no valid keypoint (a masked IEKF
+    round) every row is zero, as the kernel gives it, and no search
+    runs."""
+    if not bool(keypts_valid.any()):
+        return (world.new_zeros((world.shape[0], 6)),
+                world.new_zeros((world.shape[0],)),
+                torch.zeros_like(keypts_valid))
     neighbors, n_found = _knn_found(
         vmap, world, threshold_capacity, voxel_size=voxel_size,
         max_neighbors=max_neighbors, max_probe=max_probe,

@@ -18,7 +18,10 @@ same 32-bit patterns, so `keys`, `sig`, `counts` and `point_ids` come out
 bit-identical for the same insert sequence.
 
 Unlike the JAX package (which returns new arrays and donates the old map),
-`insert` UPDATES THE MAP IN PLACE and returns it.
+`insert` UPDATES THE MAP IN PLACE and returns it.  `insert`, `insert_gate`
+and `lookup` read nothing back to the host in capture form (their loops
+run masked rounds up to a proven bound, `utils.graphs`), so the LIO step
+program captures them.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from sr_livo_tpu_torch.utils import graphs
 
 # Sentinel marking an empty hash slot.
 EMPTY = 0x7FFFFFFF
@@ -178,19 +183,28 @@ def _insert_gate_phase_chunked(vmap: VoxelMap, pts, valid, coords,
     `chunk`-row slices (a ragged last slice starts early and re-gates a
     few rows with identical results).  The gate is per-row against the
     pre-insert table, so this is exact for any validity pattern; the
-    skipped tail gets (False, -1, 0)."""
+    skipped tail gets (False, -1, 0).
+
+    The JAX package's `fori_loop(0, n_chunks)` (sr_livo_tpu/ops/
+    voxel_map.py:249) as masked rounds: slice i is gated on the device
+    flag i * chunk < n_rows and written only where it holds; at most
+    ceil(n / chunk) slices (`utils.graphs.go_on`)."""
     n = pts.shape[0]
     chunk = min(chunk, n)
     rows = torch.arange(n, device=pts.device) + 1
-    n_rows = int(torch.max(torch.where(valid, rows, torch.zeros_like(rows))))
+    n_rows = torch.max(torch.where(valid, rows, torch.zeros_like(rows)))
     cm = torch.zeros((n,), dtype=torch.bool, device=pts.device)
     sl = torch.full((n,), -1, dtype=torch.int64, device=pts.device)
     bc = torch.zeros((n,), dtype=torch.int32, device=pts.device)
-    for i in range((n_rows + chunk - 1) // chunk):
+    for i in range((n + chunk - 1) // chunk):
+        live = n_rows > i * chunk
+        if not graphs.go_on(live):
+            break
         off = min(i * chunk, n - chunk)
         s = slice(off, off + chunk)
-        cm[s], sl[s], bc[s] = _insert_gate_phase(
-            vmap, pts[s], valid[s], coords[s], min_distance, max_probe)
+        for buf, new in zip((cm, sl, bc), _insert_gate_phase(
+                vmap, pts[s], valid[s], coords[s], min_distance, max_probe)):
+            buf[s] = torch.where(live, new, buf[s])
     return cm, sl, bc
 
 
@@ -277,9 +291,19 @@ def insert(vmap: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
     # first empty slot of its probe chain; scatter-min elects one winner
     # per slot, the winner writes sig+keys, everyone else re-probes (same-
     # voxel losers then match the winner's signature and join its block).
+    # At most max_probe + 1 rounds have a pending point: slots only ever
+    # fill, so a point's first empty probe index never falls, and a point
+    # that loses a round lost its target slot to that round's winner, so
+    # its next first empty index is strictly larger.  After k lost rounds
+    # it is at least k, so in round max_probe + 1 no empty slot is left
+    # on its chain (index max_probe) and it drops out.  Masked rounds up
+    # to that bound are the JAX `while_loop` (sr_livo_tpu/ops/
+    # voxel_map.py:389): a round with nothing pending changes nothing.
     keys, sig_col = vmap.keys, vmap.sig
     pending = live & (slot_c < 0)
-    while bool(pending.any()):
+    for _ in range(max_probe + 1):
+        if not graphs.go_on(pending.any()):
+            break
         cand_c, mi_c, ei_c = _probe_chain(sig_col, coords_c, max_probe)
         resolved = _resolve(keys, cand_c, mi_c, ei_c, coords_c, max_probe)
         joined = pending & (resolved >= 0)
@@ -293,9 +317,9 @@ def insert(vmap: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
                            device=dev).scatter_reduce_(
             0, torch.where(unresolved, tgt, capacity), idx_b, "amin")
         winner = unresolved & (claim[tgt] == idx_b)
-        w = torch.nonzero(winner).squeeze(1)      # winners hold distinct slots
-        keys[tgt[w]] = coords_c[w]
-        sig_col[tgt[w]] = want_c[w]
+        # winners hold distinct slots
+        masked_set(keys, tgt, coords_c, winner)
+        masked_set(sig_col, tgt, want_c, winner)
         slot_c = torch.where(winner, tgt, slot_c)
         cnt_c = torch.where(winner, torch.zeros_like(cnt_c), cnt_c)
         pending = unresolved & ~winner
@@ -319,15 +343,32 @@ def insert(vmap: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
 
     # Phase 6 — budget-sized scatters into the flat table (accepted rows
     # have distinct destinations).
-    acc = torch.nonzero(accept_c).squeeze(1)
-    flat_idx = safe_c[acc] * K + pos[acc]
-    vmap.points[flat_idx] = pts_c[acc]
-    vmap.point_ids[flat_idx] = ids_c[acc]
+    flat_idx = safe_c * K + pos
+    masked_set(vmap.points, flat_idx, pts_c, accept_c)
+    masked_set(vmap.point_ids, flat_idx, ids_c, accept_c)
     vmap.counts.scatter_add_(0, safe_c, accept_c.to(torch.int32))
 
     accepted = torch.zeros((n + 1,), dtype=torch.bool, device=dev).scatter_(
         0, torch.where(accept_c, sel, torch.full_like(sel, n)), True)[:n]
     return vmap, accepted
+
+
+def masked_set(dst: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+               mask: torch.Tensor) -> None:
+    """dst[idx[mask]] = values[mask], in place and with fixed shapes (the
+    JAX package's `.at[].set(mode="drop")`; no `nonzero`, so nothing is
+    read back to the host).  The targets of the masked rows must be
+    distinct.  Every other row repeats the write of the first masked row
+    (the same target, the same value), or, when no row is masked,
+    rewrites dst[0] with its own value: duplicate targets then carry
+    equal values, so the result does not depend on the write order."""
+    first = torch.argmax(mask.to(torch.uint8), 0, keepdim=True)   # (1,)
+    hit = mask[first]
+    fb_idx = torch.where(hit, idx[first], torch.zeros_like(idx[first]))
+    vshape = (-1,) + (1,) * (values.dim() - 1)
+    fb_val = torch.where(hit.reshape(vshape), values[first], dst[:1])
+    dst.index_put_((torch.where(mask, idx, fb_idx),),
+                   torch.where(mask.reshape(vshape), values, fb_val))
 
 
 def _offsets(nb: int, device) -> torch.Tensor:

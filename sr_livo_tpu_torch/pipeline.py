@@ -279,15 +279,20 @@ class LivoPipeline:
         if self.cfg.adaptive_keypoint_density and meas.imu:
             gyr_rate = self._adaptive_gyr_rate(meas)
         with self.timers.stage("lio_step"):
+            # one program replay on the card (LioEngine.step); its state,
+            # map and outputs are overwritten by the next step, so what
+            # outlives this sweep is copied below
             out = self.engine.step(self.state, self.voxel_map, sweep,
                                    self.index_frame, prev_poses=prev_poses,
-                                   gyr_rate=gyr_rate, timers=self.timers)
+                                   gyr_rate=gyr_rate)
             self.timers.synchronize()
         self.state = out.state
         self.voxel_map = out.voxel_map
+        record = out.record.clone()
         if self.engine.use_cv_init:
             self._pose_hist = (self._pose_hist
-                               + [(out.state.q, out.state.p)])[-2:]
+                               + [(out.state.q.clone(),
+                                   out.state.p.clone())])[-2:]
 
         if self.cfg.debug_output:
             # per-frame de-skewed world-frame cloud dump
@@ -334,17 +339,17 @@ class LivoPipeline:
         if self.cfg.icp.debug_print:
             # ICP failure diagnostics (optimize.cpp:110-123); reads the
             # packed record back synchronously — debug mode only.
-            row = out.record.double().cpu().numpy()
+            row = record.double().cpu().numpy()
             if row[16] < 0.5:
                 print("[Optimization] Error : not enough keypoints "
                       "selected in ct-icp !\n[Optimization] "
                       f"number_of_residuals : {int(row[17])}")
 
         self._pending_records.append(
-            (meas.time_image, meas.rendering, out.record))
+            (meas.time_image, meas.rendering, record))
         if self.stream is not None:
             self.stream.publish_frame(
-                meas.time_image, out.record,
+                meas.time_image, record,
                 color_map=(self.vision.color_map
                            if self.vision is not None else None))
         if self.cfg.retire_frames:

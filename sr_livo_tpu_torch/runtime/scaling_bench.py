@@ -228,8 +228,10 @@ class Run:
         for fid, s in enumerate(self.sweeps, start=first_fid):
             o = self.engine.step(self.state, self.vmap, s, fid)
             self.state, self.vmap = o.state, o.voxel_map
-            self.positions.append(o.state.p)
-            self.overflow.append(o.route_overflow)
+            # copies: the single-device step's outputs are its program's,
+            # which the next step overwrites
+            self.positions.append(o.state.p.clone())
+            self.overflow.append(o.route_overflow.clone())
         synchronize(dev)
         seconds = (time.perf_counter() - t0) / len(self.sweeps)
         for k, v in _counters().items():

@@ -2,11 +2,11 @@
 `donate_argnums`.
 
 The JAX package runs each per-frame body as one compiled XLA program whose
-state arguments are donated (`VisionModule._fused_frame_core`, the IEKF
-loop inside `LioEngine._raw_step`).  PyTorch runs eagerly, one host launch
-per op, so a body of a few thousand small ops is bound by the host's
-launch rate.  A `Program` captures such a body once as a CUDA graph and
-replays it.
+state arguments are donated (`VisionModule._fused_frame_core`,
+`LioEngine._raw_step`, `color_insert`).  PyTorch runs eagerly, one host
+launch per op, so a body of a few thousand small ops is bound by the
+host's launch rate.  A `Program` captures such a body once as a CUDA
+graph and replays it.
 
 A program is a pure function `fn(state, inputs) -> (new_state, outputs)`
 over pytrees (tuples and NamedTuples; None leaves stay None) of
@@ -29,11 +29,28 @@ tensor already: a host-side `data_ptr` comparison, which costs no
 synchronize.
 
 On a CUDA device the first call captures: `fn` runs once on a side stream
-(a warm-up, its results dropped: `fn` writes nothing it was given), then
+over a copy of the state (a warm-up, its results dropped: `fn` may update
+state buffers in place, as the LIO step inserts into its voxel map), then
 `fn` and the write-back are captured into a CUDA graph with a private
 memory pool, and every call replays it.  A failed capture raises; there
 is no eager fallback on the card.  On the CPU the same `fn` and write-back
 run directly: that is the plain path and the oracle of the tests.
+
+Data-dependent control flow.  The JAX programs hold `lax.while_loop`s and
+`lax.cond`s; a CUDA graph holds a fixed sequence of kernels.  CUDA's
+conditional nodes would skip a dead round on the device, but PyTorch
+2.11 (CUDA 12.8), the build the port is measured with, does not expose
+them (`tests/torch_cond_probe.py`), so every such loop is written as MASKED
+ROUNDS up to a proven bound: each round is a no-op once the loop's
+device flag is down.  The function asks `go_on(flag)` before a round:
+in capture form (the warm-up and the capture of a `Program`, or a
+`capture_form()` block) it is True and every round runs; in an eager run
+(the CPU, or the card outside a program) it reads the flag back and the
+loop stops where JAX's would.  Both forms give the same bits: a masked
+round changes nothing.  `cond(pred, true_fn, false_value)` is `lax.cond`
+with an identity false branch: in capture form both run and a select
+keeps one, eagerly the host picks.  A program therefore reads nothing
+back to the host, and an eager run does no dead work.
 
 `outputs` are the graph's own tensors, which the next replay overwrites:
 a caller clones what it keeps.
@@ -47,8 +64,10 @@ The warm-up's launches are taken back too: they are not the path's.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 import time
 from typing import Any, Callable, Dict, List
 
@@ -71,6 +90,79 @@ def _snapshot() -> List[Dict[str, int]]:
 def _restore(snap: List[Dict[str, int]]) -> None:
     for c, s in zip(_COUNTERS, snap):
         c.update(s)
+
+
+@contextlib.contextmanager
+def counts_kept():
+    """Within the block, the registered counters do not move: for a check
+    that runs a program's function eagerly beside its replay."""
+    snap = _snapshot()
+    try:
+        yield
+    finally:
+        _restore(snap)
+
+
+_FORM = threading.local()
+
+
+def in_capture_form() -> bool:
+    """Whether the code runs as a capture records it (module docstring)."""
+    return getattr(_FORM, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def capture_form():
+    """Within the block, bounded loops run every round and `cond` runs both
+    branches, as a `Program`'s capture records them; nothing is read back
+    to the host."""
+    _FORM.depth = getattr(_FORM, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _FORM.depth -= 1
+
+
+def go_on(flag: torch.Tensor) -> bool:
+    """Whether a bounded loop runs its next round, whose work `flag` (a
+    device bool) masks: always in capture form (a round after the flag
+    went down is a no-op), else the flag read back to the host, so an
+    eager loop stops where the JAX `while_loop` does.  Only for loops
+    whose flag, once down, stays down."""
+    return True if in_capture_form() else bool(flag)
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_value):
+    """`lax.cond(pred, true_fn, identity)`: `true_fn(active)` returns a
+    pytree shaped like `false_value`.  In capture form it runs with
+    `active=pred`, which it may use to mask its own work, and a select
+    keeps its result where `pred` holds; otherwise the host reads `pred`
+    and calls `true_fn(None)` only when it holds."""
+    if in_capture_form():
+        return tree_map(lambda a, b: torch.where(pred, a, b),
+                        true_fn(pred), false_value)
+    return true_fn(None) if bool(pred) else false_value
+
+
+# In-graph stage events: with `stage_events(True)` when a program is
+# captured, each `mark(name)` in its function records a timing event in
+# the graph, and `Program.stage_ms()` reads the device time between them.
+_MARKS = {"on": False, "into": None}
+
+
+def stage_events(on: bool) -> None:
+    """Whether programs captured from now on record their `mark`s."""
+    _MARKS["on"] = bool(on)
+
+
+def mark(name: str) -> None:
+    """Stage `name` of the program being captured starts here (nothing
+    outside such a capture, or with stage events off)."""
+    into = _MARKS["into"]
+    if into is not None:
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        into.append((name, ev))
 
 
 def tree_leaves(tree) -> list:
@@ -164,27 +256,17 @@ class Program:
         self.graph = None
         self.outputs: Any = None
         self._delta: List[Dict[str, int]] = []
-        self.captures = 0          # captures so far (a rebind re-captures)
+        self.captures = 0          # captures so far
         self.replays = 0
         self.capture_s = 0.0       # host seconds of the last capture
         self.nodes = 0             # nodes of the captured graph
+        self.marks: list = []      # (stage, event) recorded in the graph
 
     def body(self):
         """What the graph holds: `fn`, then the write-back of its state."""
         new_state, outputs = self.fn(self.state, self.inputs)
         refill(self.state, new_state)          # the write-back
         return outputs
-
-    def rebind(self, inputs) -> None:
-        """Adopt other input tensors as the buffers; the graph, captured
-        on the old addresses, and its memory pool are dropped, and the
-        next call captures again.  For an input replaced wholesale where
-        a copy would cost more than a capture (a new voxel map)."""
-        if self.graph is not None:
-            # the pool goes back to the allocator: let the last replay end
-            torch.cuda.current_stream(self.device).synchronize()
-        self.inputs = inputs
-        self.graph, self.outputs, self._delta = None, None, []
 
     def __call__(self):
         if self.device.type != "cuda":
@@ -198,6 +280,16 @@ class Program:
         self.replays += 1
         return self.outputs
 
+    def stage_ms(self) -> Dict[str, float]:
+        """Device ms of each stage marked in the graph (`mark`) in the last
+        replay; waits for it.  Empty when it was captured without stage
+        events."""
+        if not self.marks:
+            return {}
+        self.marks[-1][1].synchronize()
+        return {name: a.elapsed_time(b) for (name, a), (_, b)
+                in zip(self.marks[:-1], self.marks[1:])}
+
     def _capture(self) -> None:
         t0 = time.perf_counter()
         before = _snapshot()
@@ -205,18 +297,24 @@ class Program:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        marks = []
         try:
-            with torch.cuda.stream(side):
-                self.fn(self.state, self.inputs)   # warm-up, results dropped
+            with torch.cuda.stream(side), capture_form():
+                # warm-up on a copy of the state, results dropped
+                self.fn(tree_map(torch.clone, self.state), self.inputs)
                 _restore(before)
                 # "thread_local": the pipeline's feeder thread may upload
                 # the next frame meanwhile; a private pool (pool=None)
                 graph.capture_begin(capture_error_mode="thread_local")
+                _MARKS["into"] = marks if _MARKS["on"] else None
                 try:
                     outputs = self.body()
+                    mark("end")
                 except BaseException:
                     _end_failed_capture(graph)
                     raise
+                finally:
+                    _MARKS["into"] = None
                 graph.capture_end()
             after = _snapshot()
         finally:
@@ -226,7 +324,7 @@ class Program:
         self._delta = [{k: a[k] - b.get(k, 0) for k in a
                         if a[k] != b.get(k, 0)}
                        for a, b in zip(after, before)]
-        self.graph, self.outputs = graph, outputs
+        self.graph, self.outputs, self.marks = graph, outputs, marks
         self.nodes = graph_nodes(graph)
         self.captures += 1
         self.capture_s = time.perf_counter() - t0

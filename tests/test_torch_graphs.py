@@ -1,13 +1,16 @@
 """The port's captured programs (sr_livo_tpu_torch.utils.graphs) on the CPU,
 against the JAX package.
 
-Two programs run the main path's fixed-shape bodies: the vision frame
-program (`VisionModule._fused_frame_core`, the counterpart of the JAX
-package's jitted `VisionModule._fused_frame_core`) and the IEKF iteration
-program (`lio.iteration_fn`, one round of the IEKF `while_loop` inside the
-JAX package's jitted `LioEngine._raw_step`).  On the card each is a CUDA
-graph replay; on the CPU the same function runs directly over the same
-buffers, refilled in place between calls, which is what these tests hold:
+Three programs run the main path: the vision frame program
+(`VisionModule._fused_frame_core`, the counterpart of the JAX package's
+jitted `VisionModule._fused_frame_core`), the LIO step program
+(`LioEngine.step_fn`, the JAX package's jitted `LioEngine._raw_step`) and
+the colored-map insert program (`VisionModule.insert_fn`, JAX's jitted
+`color_insert`).  On the card each is a CUDA graph replay; on the CPU the
+same function runs directly over the same buffers, refilled in place
+between calls, which is what these tests hold (tests/
+test_torch_lio_program.py holds the step and insert programs against the
+JAX package):
 
   * parity: one LIO-only run of the port records what the pipeline hands
     the vision module for each sweep of a 5 s run (test_vision_pipeline
@@ -16,18 +19,24 @@ buffers, refilled in place between calls, which is what these tests hold:
     sweeps, the port's RANSAC getting the JAX key chain's Gumbel draws.
     Bars of test_torch_vision.py: kept tracks within 5% on every frame,
     intrinsics within 0.5 px, `td` within 1e-3 s, colored points within
-    2%.  The IEKF program runs three updates in a row in each association
-    mode on test_torch_lio.py's scene against `iekf_update` of the JAX
+    2%.  The IEKF update, whose `while_loop` runs inside the step
+    program as masked rounds, runs as a program of its own three times
+    in a row in each association mode on test_torch_lio.py's scene, in
+    its eager and its capture form, against `iekf_update` of the JAX
     package, with that file's bars;
   * the refill contract: a program whose buffers held call A and were
     refilled with call B gives a fresh program's result on B, bit for bit
     (a value of call A baked into the program would show here);
-  * aliasing: the stats and records the pipeline keeps are its own
-    copies, not the programs' outputs, and hold what each call gave;
-  * no host read: each program's function, run under a dispatch mode
-    that fails on a host read (`item`, a 0-d or boolean-mask index,
-    `nonzero`) or on a host value uploaded into an op (other than a
-    fill), which a CUDA graph capture refuses;
+  * aliasing: the stats, records and poses the pipeline keeps are its own
+    copies, not the programs' outputs or buffers, and hold what each call
+    gave; the step programs of all phases share the pipeline's state and
+    map;
+  * no host read: each program's function in capture form (a whole
+    steady LIO step in both association modes and with the retry, a whole
+    colored-map insert, the IEKF update, the vision frame), run under a
+    dispatch mode that fails on a host read (`item`, a 0-d or
+    boolean-mask index, `nonzero`) or on a host value uploaded into an op
+    (other than a fill), which a CUDA graph capture refuses;
   * the helper's pytree and refill rules.
 """
 import functools
@@ -46,6 +55,7 @@ from sr_livo_tpu.models.vision import VisionModule as JVision
 from sr_livo_tpu.runtime import synthetic as jsyn
 from sr_livo_tpu.utils.profiling import StageTimers as JTimers
 from sr_livo_tpu_torch import convert
+from sr_livo_tpu_torch.config import INIT_CONSTANT_VELOCITY
 from sr_livo_tpu_torch.models import lio as tlio
 from sr_livo_tpu_torch.models.vision import VisionModule as TVision
 from sr_livo_tpu_torch.ops import plane_fit
@@ -253,14 +263,22 @@ def _jax_update(st, m, keypts, valid, seed_p, cache):
                             jnp.asarray(seed_p))
 
 
-def _port_update(st, m, keypts, valid, seed_p, cache, programs):
-    t_st = convert.eskf_state_from_numpy(st)
-    return tlio.iekf_update(
-        t_st, m, torch.as_tensor(keypts), torch.as_tensor(valid),
-        torch.zeros(3), torch.eye(3), torch.zeros(3),
-        torch.tensor(1, dtype=torch.int32), seed_q=t_st.q,
-        seed_p=torch.as_tensor(seed_p), cache_association=cache,
-        programs=programs, **ICP)
+def _iekf_fn(cache):
+    """A program over one whole IEKF update: fn(prior EskfState, (map,
+    keypoints, valid, seed_p, last_trans, r_il, t_il, threshold)) ->
+    (the prior, (updated state, IekfSummary))."""
+    def fn(prior, inputs):
+        vmap, keypts, valid, seed_p, last, r_il, t_il, thr = inputs
+        return prior, tlio.iekf_update(
+            prior, vmap, keypts, valid, last, r_il, t_il, thr,
+            seed_q=prior.q, seed_p=seed_p, cache_association=cache, **ICP)
+    return fn
+
+
+def _iekf_inputs(t_map, keypts, valid, seed_p):
+    return (t_map, torch.as_tensor(keypts), torch.as_tensor(valid),
+            torch.as_tensor(seed_p), torch.zeros(3), torch.eye(3),
+            torch.zeros(3), torch.tensor(1, dtype=torch.int32))
 
 
 SEEDS = ([0.1, -0.05, 0.05], [-0.08, 0.06, 0.0], [0.03, 0.1, -0.04])
@@ -268,31 +286,44 @@ SEEDS = ([0.1, -0.05, 0.05], [-0.08, 0.06, 0.0], [0.03, 0.1, -0.04])
 
 @pytest.fixture(scope="module")
 def iekf_runs(scene):  # noqa: F811
+    """Per mode: the program, (JAX, eager, capture-form) results of each
+    update and the call log."""
     m, keypts, valid, st, _, _ = scene
     runs = {}
     for cache in (True, False):
         t_map = convert.voxel_map_from_numpy(m)
-        programs, rows = {}, []
+        prog, rows = None, []
         with CallLog("iekf") as log:
-            for seed_p in SEEDS:
+            for k, seed_p in enumerate(SEEDS):
                 seed_p = np.asarray(seed_p, np.float32)
-                j = _jax_update(st, m, keypts, valid, seed_p, cache)
-                t = _port_update(st, t_map, keypts, valid, seed_p, cache,
-                                 programs)
-                rows.append((j, t))
-        runs[cache] = (programs, rows, log)
+                # each update from its own prior velocity
+                prior = st._replace(v=np.asarray(st.v) + np.float32(0.01 * k))
+                inputs = _iekf_inputs(t_map, keypts, valid, seed_p)
+                t_prior = convert.eskf_state_from_numpy(prior)
+                if prog is None:
+                    prog = graphs.Program(
+                        _iekf_fn(cache), t_prior,
+                        graphs.tree_map(torch.clone, inputs),
+                        name=f"iekf[{'assoc' if cache else 'search'}]")
+                else:
+                    graphs.refill(prog.state, t_prior)
+                    graphs.refill(prog.inputs, inputs)
+                out = prog()
+                with graphs.capture_form():
+                    captured = prog.fn(prog.state, prog.inputs)[1]
+                rows.append((_jax_update(prior, m, keypts, valid, seed_p,
+                                         cache), out, captured))
+        runs[cache] = (prog, rows, log)
     return runs
 
 
 @pytest.mark.parametrize("cache", [True, False], ids=["assoc", "search"])
 def test_iekf_program_matches_jax(iekf_runs, cache):
-    programs, rows, log = iekf_runs[cache]
-    assert len(programs) == 1
-    prog = next(iter(programs.values()))
+    prog, rows, log = iekf_runs[cache]
     assert all(c["prog"] is prog for c in log.calls)
     assert all(c["buffers"] == log.calls[0]["buffers"] for c in log.calls)
-    per_update = []
-    for (j_out, j_sum), (t_out, t_sum) in rows:
+    for (j_out, j_sum), (t_out, t_sum), captured in rows:
+        _assert_same_bits((t_out, t_sum), captured)
         assert bool(t_sum.success) and bool(j_sum.success)
         assert int(t_sum.iterations) == int(j_sum.iterations) > 1
         assert int(t_sum.num_residuals) == int(j_sum.num_residuals) > 100
@@ -303,63 +334,77 @@ def test_iekf_program_matches_jax(iekf_runs, cache):
         j_cov = np.asarray(j_out.cov)
         np.testing.assert_allclose(t_out.cov.numpy(), j_cov, rtol=0,
                                    atol=1e-5 * np.abs(j_cov).max())
-        per_update.append(int(t_sum.iterations))
-    assert len(log.calls) == sum(per_update)
-    # the three updates started from three poses
-    assert len({tuple(r[1][0].p.numpy().round(6)) for r in rows}) >= 1
-    assert len({tuple(c["state"].x.numpy()[:3]) for c in log.calls}) \
+    # one call per update, each from its own seed
+    assert len(log.calls) == len(SEEDS)
+    assert len({tuple(c["inputs"][3].numpy()) for c in log.calls}) \
         == len(log.calls)
 
 
 @pytest.mark.parametrize("cache", [True, False], ids=["assoc", "search"])
 def test_iekf_program_refill_contract(iekf_runs, cache):
     _, _, log = iekf_runs[cache]
-    first_of_second = next(i for i, c in enumerate(log.calls)
-                           if not torch.equal(c["inputs"].pred_x,
-                                              log.calls[0]["inputs"].pred_x)
-                           or not torch.equal(c["state"].x,
-                                              log.calls[0]["after"].x))
-    _contract(log.calls[0], log.calls[first_of_second])
+    _contract(log.calls[0], log.calls[1])
 
 
 @pytest.mark.parametrize("cache", [True, False], ids=["assoc", "search"])
 def test_iekf_results_are_copies(iekf_runs, cache):
     """What an update returns is not the program's buffers: the next
     update leaves it as it was."""
-    programs, rows, _ = iekf_runs[cache]
-    prog = next(iter(programs.values()))
+    prog, rows, _ = iekf_runs[cache]
     buffers = {t.data_ptr() for t in graphs.tree_leaves(prog.state)}
     buffers |= {t.data_ptr() for t in graphs.tree_leaves(prog.inputs)}
-    for (j_out, _), (t_out, t_sum) in rows:
-        for t in list(t_out) + list(t_sum):
+    for (j_out, _), (t_out, t_sum), _ in rows:
+        for t in graphs.tree_leaves((t_out, t_sum)):
             assert t.data_ptr() not in buffers
         np.testing.assert_allclose(t_out.p.numpy(), np.asarray(j_out.p),
                                    atol=1e-5, rtol=0)
 
 
-def test_pipeline_records_are_copies(sweeps):
-    """Over a LIO run, the records kept per frame are not the IEKF
-    program's buffers or outputs, and hold each frame's state."""
+@pytest.fixture(scope="module")
+def lio_pipe():
+    """A LIO-only port run through the init and steady step programs, one
+    per phase, and the kept records, pose seeds and step outputs."""
     sim = jsyn.simulate(**dict(SIM, duration=4.0))
-    pipe = TPipe(_port_cfg(), device="cpu")
+    cfg = _port_cfg()
+    cfg.odometry_options.initialization = INIT_CONSTANT_VELOCITY
+    cfg.odometry_options.init_num_frames = cfg.icp.init_num_frames = 3
+    pipe = TPipe(cfg, device="cpu")
     seen = []
     step = pipe.engine.step
 
     def recorded(*args, **kw):
         out = step(*args, **kw)
-        seen.append(out.record.clone())
+        seen.append((out, out.record.clone(), out.state.p.clone()))
         return out
     pipe.engine.step = recorded
     trun(pipe, sim)
+    return pipe, seen
+
+
+def test_pipeline_records_are_copies(lio_pipe):
+    """Over a LIO run, the records and pose seeds kept per frame are not
+    the step programs' buffers or outputs, and hold each frame's values;
+    the programs of all phases share the pipeline's state and map."""
+    pipe, seen = lio_pipe
+    progs = list(pipe.engine.programs.values())
+    assert sorted(p.name for p in progs) == ["lio_step[init]",
+                                             "lio_step[steady]"]
+    for p in progs:
+        assert graphs.same_leaves(p.state, (pipe.state, pipe.voxel_map))
     kept = [r for (_, _, r) in pipe._pending_records]
     assert len(kept) == len(seen) >= 3
     assert len({r.data_ptr() for r in kept}) == len(kept)
-    progs = pipe.engine.iekf_programs.values()
     owned = {t.data_ptr() for p in progs for t in graphs.tree_leaves(
         (p.state, p.inputs, p.outputs))}
-    assert not owned & {r.data_ptr() for r in kept}
-    for r, s in zip(kept, seen):
-        assert torch.equal(r, s)
+    owned |= {t.data_ptr() for (out, _, _) in seen
+              for t in graphs.tree_leaves(out)}
+    poses = [t for pose in pipe._pose_hist for t in pose]
+    assert len(poses) == 4
+    assert not owned & {t.data_ptr() for t in kept + poses}
+    for r, (_, rec, _) in zip(kept, seen):
+        assert torch.equal(r, rec)
+    (q1, p1), (q0, p0) = pipe._pose_hist[-1], pipe._pose_hist[-2]
+    assert torch.equal(p1, seen[-1][2]) and torch.equal(p0, seen[-2][2])
 
 
 class NoHostReads(TorchDispatchMode):
@@ -397,17 +442,21 @@ class NoHostReads(TorchDispatchMode):
 
 
 def _no_host_reads(prog, monkeypatch):
-    """Runs the program's function under NoHostReads; the plain kNN that
-    stands in for the kernel on the CPU runs outside it (the card runs the
-    kernel, held by chip_smoke.py's phase graphs)."""
+    """Runs the program's function in capture form, on a copy of its state,
+    under NoHostReads; the plain kNN that stands in for the kernel on the
+    CPU runs outside it (the card runs the kernel, held by chip_smoke.py's
+    phase graphs)."""
     for name in ("knn_plane_rows", "knn_plane_assoc"):
         def outside(*a, _orig=getattr(plane_fit, name), **k):
             with _disable_current_modes():
                 return _orig(*a, **k)
         monkeypatch.setattr(plane_fit, name, outside)
-    prog.fn(prog.state, prog.inputs)           # warm caches, as the card
-    with NoHostReads() as mode:
-        prog.fn(prog.state, prog.inputs)
+    with graphs.capture_form():
+        # warm caches, as the card
+        prog.fn(graphs.tree_map(torch.clone, prog.state), prog.inputs)
+        state = graphs.tree_map(torch.clone, prog.state)
+        with NoHostReads() as mode:
+            prog.fn(state, prog.inputs)
     assert not mode.bad, mode.bad
 
 
@@ -418,8 +467,32 @@ def test_vision_program_reads_nothing_back(vision_runs, monkeypatch):
 
 @pytest.mark.parametrize("cache", [True, False], ids=["assoc", "search"])
 def test_iekf_program_reads_nothing_back(iekf_runs, cache, monkeypatch):
-    programs, _, _ = iekf_runs[cache]
-    _no_host_reads(next(iter(programs.values())), monkeypatch)
+    prog, _, _ = iekf_runs[cache]
+    _no_host_reads(prog, monkeypatch)
+
+
+@pytest.mark.parametrize("cache,retry", [(True, False), (False, False),
+                                         (True, True)],
+                         ids=["assoc", "search", "assoc-retry"])
+def test_steady_step_reads_nothing_back(cache, retry, monkeypatch):
+    """A whole steady LIO step, from a short run's state and map."""
+    sim = jsyn.simulate(**dict(SIM, duration=4.0))
+    cfg = _port_cfg()
+    cfg.cache_association = cache
+    cfg.retry_wider_neighborhood = retry
+    cfg.odometry_options.init_num_frames = cfg.icp.init_num_frames = 3
+    pipe = trun(TPipe(cfg, device="cpu"), sim)
+    steady = [p for k, p in pipe.engine.programs.items()
+              if k[0] == "steady"]
+    assert len(steady) == 1
+    _no_host_reads(steady[0], monkeypatch)
+
+
+def test_color_insert_reads_nothing_back(vision_runs, monkeypatch):
+    _, tv, _, _ = vision_runs
+    (prog,) = tv.insert_programs.values()
+    assert graphs.same_leaves(prog.state, tv.color_map)
+    _no_host_reads(prog, monkeypatch)
 
 
 def test_no_host_reads_catches_the_refused_ops():
@@ -456,8 +529,7 @@ def test_refill_copies_only_what_differs():
 
 def test_program_on_the_cpu_writes_its_state_back():
     """On the CPU a call runs the function and the write-back; a leaf the
-    function returns unchanged stays the buffer itself; `rebind` adopts
-    other tensors."""
+    function returns unchanged stays the buffer itself."""
     def fn(state, inputs):
         return (state[0] + inputs, state[1]), state[0] * 2
     keep = torch.arange(3)
@@ -469,7 +541,4 @@ def test_program_on_the_cpu_writes_its_state_back():
     assert first.tolist() == [1.0, 1.0] and out.tolist() == [0.0, 0.0]
     prog()
     assert first.tolist() == [2.0, 2.0]
-    prog.rebind(inputs=torch.full((2,), 5.0))
-    prog()
-    assert first.tolist() == [7.0, 7.0]
     assert prog.captures == 0 and prog.graph is None

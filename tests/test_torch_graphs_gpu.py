@@ -1,6 +1,6 @@
 """The port's captured programs (sr_livo_tpu_torch.utils.graphs) on the card:
-the vision frame program and the IEKF iteration program as CUDA graph
-replays.
+the vision frame program, the LIO step program and the colored-map insert
+program as CUDA graph replays.
 
 A CUDA graph exists only on a CUDA device, so these tests skip without
 one.  The file imports neither JAX nor the JAX package, so it runs on a
@@ -16,12 +16,14 @@ machine with a GPU and no JAX:
     and the state written back are the same bits (no program holds a
     float atomic whose order could differ);
   * the launch counters advance on every replay: `knn_plane_rows`, inside
-    the search-mode IEKF program, once per iteration;
+    the search-mode IEKF update, once per round of its masked loop;
+  * a steady sweep's step and colored-map insert make no synchronizing
+    call (`torch.cuda.set_sync_debug_mode("error")`);
   * a capture that meets a host read raises, and nothing runs eagerly in
     its place: the state is as it was;
   * a state tensor replaced by eager code is copied into the program's
-    buffer before the next replay, and a new map in the search mode is
-    taken by capturing again.
+    buffer before the next replay, a new voxel map (an eviction's
+    `compact_map`) among them.
 """
 import numpy as np
 import pytest
@@ -103,10 +105,9 @@ class EveryCall:
             state = graphs.tree_map(torch.clone, prog.state)
             inputs = graphs.tree_map(torch.clone, prog.inputs)
             out = check.orig(prog)
-            before = dict(plane_fit.launches)
-            new_state, eager_out = prog.fn(state, inputs)
-            graphs.refill(state, new_state)
-            plane_fit.launches.update(before)
+            with graphs.counts_kept():
+                new_state, eager_out = prog.fn(state, inputs)
+                graphs.refill(state, new_state)
             pairs = zip(graphs.tree_leaves((prog.state, out)),
                         graphs.tree_leaves((state, eager_out)))
             if not all(torch.equal(_bits(a), _bits(b)) for a, b in pairs):
@@ -138,8 +139,8 @@ def test_replay_matches_eager_function(cuda, sim, cache):
         pipe = run_streams(LivoPipeline(cfg, vision=vision, device=cuda),
                            sim)
         torch.cuda.synchronize()
-    assert any(n.startswith("vision_frame") for n in check.names)
-    assert any(n.startswith("iekf") for n in check.names)
+    assert {"vision_frame[remapped=False]", "lio_step[init]",
+            "lio_step[steady]", "color_insert"} <= check.names
     assert check.calls > 20 and not check.differ, check.differ
     iterations = lio.counts["iterations"] - it0
     want = ({"knn_plane_assoc": len(pipe.records)} if cache
@@ -177,50 +178,86 @@ ICP = dict(size_voxel_map=1.0, nb_voxels_visited=1, max_number_neighbors=20,
            laser_point_cov=0.001)
 
 
-def _update(cuda, vmap, keypts, valid, programs, offset):
+def _iekf_program(cuda, vmap, keypts, valid, offset):
+    """A program over one whole search-mode IEKF update from a prior at
+    `offset`."""
     from sr_livo_tpu_torch.models import eskf
     st = eskf.init_state(device=cuda)
     st = st._replace(p=torch.tensor(offset, device=cuda),
                      cov=torch.eye(17, device=cuda) * 1e-2)
     f = dict(device=cuda)
-    return lio.iekf_update(
-        st, vmap, keypts, valid, torch.zeros(3, **f), torch.eye(3, **f),
-        torch.zeros(3, **f), torch.tensor(1, dtype=torch.int32, **f),
-        cache_association=False, programs=programs, **ICP)
+    inputs = (vmap, keypts, valid, torch.zeros(3, **f), torch.eye(3, **f),
+              torch.zeros(3, **f), torch.tensor(1, dtype=torch.int32, **f))
+
+    def fn(prior, inp):
+        return prior, lio.iekf_update(prior, *inp, cache_association=False,
+                                      **ICP)
+    return graphs.Program(fn, st, inputs, name="iekf[search]")
 
 
 def test_launch_counters_advance_per_replay(cuda):
     vmap, keypts, valid = _scene(cuda)
-    programs = {}
-    for offset in ([0.1, -0.05, 0.05], [-0.08, 0.06, 0.0]):
-        before = plane_fit.launches["knn_plane_rows"]
-        _, summary = _update(cuda, vmap, keypts, valid, programs, offset)
-        assert bool(summary.success)
-        assert (plane_fit.launches["knn_plane_rows"] - before
-                == int(summary.iterations) > 1)
-    (prog,) = programs.values()
-    assert prog.captures == 1 and prog.nodes > 1
-    one = plane_fit.launches["knn_plane_rows"]
-    prog()
-    assert plane_fit.launches["knn_plane_rows"] == one + 1
+    prog = _iekf_program(cuda, vmap, keypts, valid, [0.1, -0.05, 0.05])
+    rounds = ICP["max_iters"] + 1
+    for _ in range(2):
+        before = dict(plane_fit.launches), dict(lio.counts)
+        _, summary = prog()
+        assert bool(summary.success) and 1 < int(summary.iterations) < rounds
+        # every round of the masked loop launches (a dead round searches
+        # no keypoint); the counters count the rounds
+        assert plane_fit.launches["knn_plane_rows"] - before[0][
+            "knn_plane_rows"] == rounds
+        assert lio.counts["iterations"] - before[1]["iterations"] == rounds
+        assert lio.counts["updates"] - before[1]["updates"] == 1
+    assert prog.captures == 1 and prog.nodes > 1 and prog.replays == 2
 
 
-def test_new_map_captures_again(cuda):
-    """The search mode reads the map where it lies: a map that is not the
-    program's is taken by capturing again, not by a copy."""
-    vmap, keypts, valid = _scene(cuda)
-    programs = {}
-    _update(cuda, vmap, keypts, valid, programs, [0.1, -0.05, 0.05])
-    (prog,) = programs.values()
-    moved = vm.VoxelMap(*(t.clone() for t in vmap))
-    out_a, sum_a = _update(cuda, moved, keypts, valid, programs,
-                           [0.1, -0.05, 0.05])
-    assert prog.captures == 2
-    assert prog.inputs.rows.voxel_map.points is moved.points
-    out_b, sum_b = _update(cuda, vmap, keypts, valid, {},
-                           [0.1, -0.05, 0.05])
-    assert torch.equal(out_a.p, out_b.p)
-    assert int(sum_a.iterations) == int(sum_b.iterations)
+def test_new_map_is_copied_in(cuda, sim):
+    """A map that replaces the step program's (an eviction's
+    `compact_map`) is copied into the program's buffers; the graph keeps
+    its addresses, and the steps go on as on a fresh engine."""
+    cfg = small_cfg(True)
+    pipe = LivoPipeline(cfg, device=cuda)
+    run_streams(pipe, sim)
+    (prog,) = [p for k, p in pipe.engine.programs.items()
+               if k[0] == "steady"]
+    n_captures, keys = prog.captures, pipe.voxel_map.keys
+    moved, _ = vm.compact_map(pipe.voxel_map, pipe.state.p, distance=1e4,
+                              max_probe=cfg.shapes.map_max_probe)
+    assert moved.keys is not keys
+    assert torch.equal(moved.counts.sum(), pipe.voxel_map.counts.sum())
+    sweep = prog.inputs.sweep
+    frame_id = pipe.index_frame
+    fresh = LivoPipeline(cfg, device=cuda).engine
+    want = fresh.step(graphs.tree_map(torch.clone, pipe.state),
+                      graphs.tree_map(torch.clone, moved), sweep, frame_id)
+    want = graphs.tree_map(torch.clone, want)
+    got = pipe.engine.step(pipe.state, moved, sweep, frame_id)
+    assert prog.captures == n_captures and got.voxel_map.keys is keys
+    assert torch.equal(got.record, want.record)
+    assert torch.equal(got.voxel_map.counts, want.voxel_map.counts)
+
+
+def test_steady_sweep_makes_no_sync(cuda, sim):
+    """A steady sweep's step and its colored-map insert, both captured
+    already, under `set_sync_debug_mode("error")`."""
+    cfg = small_cfg(True)
+    vision = VisionModule(cfg, device=cuda)
+    pipe = run_streams(LivoPipeline(cfg, vision=vision, device=cuda), sim)
+    (prog,) = [p for k, p in pipe.engine.programs.items()
+               if k[0] == "steady"]
+    sweep = graphs.tree_map(torch.clone, prog.inputs.sweep)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipe.engine.step(pipe.state, pipe.voxel_map, sweep,
+                               pipe.index_frame)
+        vision.insert_sweep_points(out.frame_pts_world, out.frame_valid,
+                                   out.summary.success, 7.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(out.summary.success)
 
 
 def test_failed_capture_raises_without_eager_fallback(cuda):
@@ -240,9 +277,9 @@ def test_failed_capture_raises_without_eager_fallback(cuda):
 
 
 def test_replaced_state_is_copied_before_the_replay(cuda):
-    """An eager replacement of a state tensor (the colored-map insert, a
-    checkpoint load) is copied into the buffer; the graph keeps its
-    addresses and replays on the new values."""
+    """An eager replacement of a state tensor (a checkpoint load) is
+    copied into the buffer; the graph keeps its addresses and replays on
+    the new values."""
     def fn(state, inputs):
         return state * 2 + inputs, state.sum()
     buf = torch.ones(3, device=cuda)

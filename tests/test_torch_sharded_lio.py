@@ -127,7 +127,9 @@ def _single_chip(cfg, sweeps):
     for fid, sw in enumerate(sweeps, start=1):
         o = eng.step(s, m, _port_sweep(sw), fid)
         s, m = o.state, o.voxel_map
-        out.append(dict(p=s.p.numpy(), q=s.q.numpy(),
+        # copies: the step's state is its program's buffers, which the
+        # next step overwrites
+        out.append(dict(p=s.p.numpy().copy(), q=s.q.numpy().copy(),
                         success=bool(o.summary.success),
                         num_residuals=int(o.summary.num_residuals),
                         map_size=int(tvm.map_size(m))))
