@@ -118,10 +118,16 @@ Phases, each printing one JSON line:
      the graph) over 20 frames before those, and the r3live step with
      the retry against the same step without it; (e) a steady sweep's
      step and colored-map insert under
-     `torch.cuda.set_sync_debug_mode("error")`.  The launch counts hold
-     as the code calls for (a replay adds what its capture launched: a
-     masked round launches its kernel too), and the LIVO run passes the
-     vision bars;
+     `torch.cuda.set_sync_debug_mode("error")`; (f) the long-run
+     path's programs (`LONG_RUN_PROGRAMS`: the windowed BA, the loop
+     check, the pose-graph solves' Gauss-Newton iteration, `compact_map`
+     and the map rebuild's insert) on the slice's simulation with the
+     mapping backend (feedback and rebuild on) and eviction every 20
+     frames: the first and every 10th call of each checked as in (a),
+     the pose-graph iterations (float atomics) within the spread of 5
+     eager runs.  The launch counts hold as the code calls for (a replay
+     adds what its capture launched: a masked round launches its kernel
+     too), and the LIVO run passes the vision bars;
   8. longrun — the same run with the long-run parts on: the mapping
      backend (loop feedback into the filter with map rebuild, otherwise
      BackendConfig's defaults), far-voxel eviction every 20 frames and a
@@ -129,18 +135,27 @@ Phases, each printing one JSON line:
      counts (keyframes, BA runs, verified candidates, closures, feedback
      events, map rebuilds), eviction calls and dropped voxels, stream
      lines and chunks, the `backend` stage's mean and longest time, the
-     final pose-graph solve and a PCG solve of a 100-node chain, and
-     checks test_backend.py's ATE bars on the optimized trajectory, the
-     vision bars, one stream line per frame, the backend's own
-     `knn_plane_assoc` launches (counted around its keyframe hook, where
-     all its associations run) equal to 2 per BA run plus 9 per verified
-     loop candidate, the rest once per sweep, no other entry and no plain
-     kNN on the card.  `compact_map` of the final map at 6 m on the card
-     must equal the CPU's.  Then `fused_vs_plain` holds `knn_plane_assoc`
-     against its plain version at the backend's two shapes captured in
-     the run (BA: 4096 x 20 at 0.6 m on the live map; loop verification:
-     1024 x 10 on the 2^14-slot temporary map), a2d only on rows that are
-     not flat to rounding (`FLAT_FLOOR`), and times them;
+     final pose-graph solve and a PCG solve of a 100-node chain (eager,
+     and as the backend's program: capture seconds, nodes, the replayed
+     solve's device ms, its iterations checked against the eager
+     function), per captured program its nodes, captures, capture
+     seconds, replays and device ms per replay (`ReplayTimes`), and per
+     long-run program the host launches of a steady call against its
+     function run eagerly (`steady_calls`), and checks test_backend.py's
+     ATE bars on the optimized trajectory, the vision bars, one stream
+     line per frame, the backend's own `knn_plane_assoc` launches
+     (counted around its keyframe hook, where all its associations run,
+     from the replays' counters) equal to 2 per BA run plus 9 per
+     verified loop candidate, the rest once per sweep, no other entry and
+     no plain kNN on the card, and no synchronizing call in a steady call
+     of any long-run program.  `compact_map` of the final map at 6 m on
+     the card must equal the CPU's.  Then `fused_vs_plain` holds
+     `knn_plane_assoc` against its plain version at the backend's two
+     shapes taken from inside their programs after the run (BA: the last
+     window, 4096 x 20 at 0.6 m, on the final live map; loop
+     verification: the last candidate, 1024 x 10 on the 2^14-slot
+     temporary map), a2d only on rows that are not flat to rounding
+     (`FLAT_FLOOR`), and times them;
   9. resume  — the first 10 s of the run without the backend, straight
      through and again checkpointed at 5 s and resumed in a fresh
      pipeline: the same frames, positions within 5e-3 m, the same colored
@@ -265,7 +280,9 @@ CAPTURED = {
                       "(cache_association=False), one node per round of "
                       "the IEKF's masked loop",
     "knn_plane_assoc": "captured: inside the LIO step program, one node "
-                       "per IEKF update",
+                       "per IEKF update; inside the windowed-BA program, "
+                       "one per Gauss-Newton iteration; inside the "
+                       "loop-check program, 9",
     "plane_assoc": "off the main path", "plane_rows": "off the main path"}
 # How each data-dependent loop of the JAX programs runs in the port's
 # captured programs (utils/graphs.py): this PyTorch build exposes no CUDA
@@ -279,7 +296,14 @@ LOOP_ROUTES = {
     "ops/color_map.py::_claim_dedup": "masked rounds, max_probe + 1",
     "models/lio.py::iekf_update": "masked rounds, max_iters + 1",
     "models/odometry.py::_sweep_core retry": "both branches, select "
-                                             "(graphs.cond)"}
+                                             "(graphs.cond)",
+    "ops/voxel_map.py::compact_map claim rounds":
+        "masked rounds, max_probe + 1",
+    "parallel/pose_graph.py Gauss-Newton fori_loop":
+        "one iteration's program replayed iters times",
+    "parallel/pose_graph.py CG fori_loop": "unrolled, cg_iters steps",
+    "parallel/ba.py::windowed_ba fori_loop": "unrolled, iters",
+    "parallel/loop_closure.py::verify_closure fori_loop": "unrolled, iters"}
 
 
 def emit(obj) -> None:
@@ -522,19 +546,22 @@ class Capture:
     memory so that it does not count in the run's peak device memory.
     Every call is passed on; the calls a program's warm-up and capture
     make are not recorded.  A call inside a captured program makes no
-    Python call when the graph replays, so for an entry that a program
-    calls (`IN_PROGRAMS`), before each call of such a program on the
+    Python call when the graph replays, so for the programs whose names
+    start with `programs` (by default those of the main path that call
+    the entry, `IN_PROGRAMS`), before each call of such a program on the
     card, until a call is recorded, the program's function runs once
-    eagerly on a copy of its buffers (`eager_fn`) for the record; with
-    `in_programs=False` (a call made only eagerly, as the backend's) it
-    does not.  `args_on(device)` returns the record on a device."""
+    eagerly on a copy of its state (`eager_fn`) for the record.
+    `args_on(device)` returns the record on a device."""
 
-    # entry -> the name prefix of the captured programs that call it
-    IN_PROGRAMS = {"knn_plane_rows": "lio_step",
-                   "knn_plane_assoc": "lio_step"}
+    # entry -> the name prefixes of the main path's captured programs that
+    # call it
+    IN_PROGRAMS = {"knn_plane_rows": ("lio_step",),
+                   "knn_plane_assoc": ("lio_step",)}
 
-    def __init__(self, name: str, want=None, in_programs: bool = True):
-        self.name, self.args, self.in_programs = name, None, in_programs
+    def __init__(self, name: str, want=None, programs=None):
+        self.name, self.args = name, None
+        self.programs = (self.IN_PROGRAMS.get(name, ()) if programs is None
+                         else programs)
         self.want = want or (lambda args, kw: True)
 
     def __enter__(self):
@@ -551,10 +578,9 @@ class Capture:
         self.orig_call = program.__call__
 
         def call(prog):
-            if (self.args is None and self.in_programs
-                    and prog.device.type == "cuda"
-                    and self.name in self.IN_PROGRAMS
-                    and prog.name.startswith(self.IN_PROGRAMS[self.name])):
+            if (self.args is None and prog.device.type == "cuda"
+                    and self.programs
+                    and prog.name.startswith(self.programs)):
                 eager_fn(prog)
             return self.orig_call(prog)
         program.__call__ = call
@@ -597,7 +623,7 @@ class LastCapture(Capture):
 
         def call(prog):
             if (prog.device.type == "cuda"
-                    and prog.name.startswith(self.IN_PROGRAMS[self.name])):
+                    and prog.name.startswith(self.programs)):
                 self.last = (prog, graphs.tree_map(_clone, prog.state),
                              graphs.tree_map(_clone, prog.inputs))
             return self.orig_call(prog)
@@ -1199,14 +1225,17 @@ def vision_bar_failures(checks: dict) -> list:
 # Phase 7b: the captured programs against their eager functions
 # ---------------------------------------------------------------------------
 
-def program_record(vision, engine) -> list:
+def program_record(vision, engine, *owners) -> list:
     """Per captured program of a run: its graph's nodes, captures, replays
     and the host seconds of its last capture (none in a checkout from
-    before the programs)."""
+    before the programs); `owners` (the backend, the pipeline) hold more
+    in `programs`."""
     progs = list(getattr(vision, "programs", {}).values())
     progs += list(getattr(vision, "insert_programs", {}).values())
     progs += list(getattr(engine, "programs", {}).values())
     progs += list(getattr(engine, "iekf_programs", {}).values())
+    for owner in owners:
+        progs += list(getattr(owner, "programs", {}).values())
     return [{"name": p.name, "nodes": p.nodes, "captures": p.captures,
              "replays": p.replays, "capture_s": p.capture_s}
             for p in progs]
@@ -1238,17 +1267,27 @@ def compare_leaves(graphs, replayed, eager) -> dict:
     return out
 
 
+# Programs that hold float atomics (`index_add_` on CUDA floats: the
+# pose-graph solves), whose eager runs part from each other: a checked
+# replay is held to the spread of ATOMIC_RUNS eager runs on its inputs.
+ATOMIC_PROGRAMS = ("pose_graph",)
+ATOMIC_RUNS = 5
+
+
 class ProgramCheck:
-    """Within the block, every `every`-th call of the captured programs
-    whose names start with `prefix` (a string or a tuple of them) is
-    checked: its buffers are cloned, the graph replayed, then the
-    program's function run eagerly on the clones and its state written
-    back into them (the counters it advances set back); the outputs and
-    the state must be the same bits."""
+    """Within the block, the first and every `every`-th call after it of
+    each captured program whose name starts with `prefix` (a string or a
+    tuple of them) is checked: its buffers are cloned, the graph
+    replayed, then the program's function run eagerly on the clones and
+    its state written back into them (the counters it advances set
+    back); the outputs and the state must be the same bits.  A program
+    with float atomics (`ATOMIC_PROGRAMS`) runs eagerly ATOMIC_RUNS times:
+    its integers must be the same bits and its floats lie within the
+    spread of those runs of one of them (`spread`, `nearest`)."""
 
     def __init__(self, prefix, every: int = 10):
         self.prefix, self.every = prefix, every
-        self.calls, self.checks = 0, []
+        self.calls, self.checks, self.per_name = 0, [], {}
 
     def __enter__(self):
         graphs = self.graphs = _programs()
@@ -1259,19 +1298,29 @@ class ProgramCheck:
                     or prog.device.type != "cuda"):
                 return self.orig_call(prog)
             self.calls += 1
-            if self.calls % self.every:
+            k = self.per_name[prog.name] = self.per_name.get(prog.name, 0) + 1
+            if (k - 1) % self.every:
                 return self.orig_call(prog)
             state = graphs.tree_map(torch.clone, prog.state)
             inputs = graphs.tree_map(torch.clone, prog.inputs)
             out = self.orig_call(prog)
             replayed = (graphs.tree_map(torch.clone, prog.state),
                         graphs.tree_map(torch.clone, out))
+            runs = (ATOMIC_RUNS if prog.name.startswith(ATOMIC_PROGRAMS)
+                    else 1)
+            eager = []
             with graphs.counts_kept():
-                new_state, eager_out = prog.fn(state, inputs)
-                graphs.refill(state, new_state)
-            self.checks.append({"program": prog.name, "call": self.calls,
-                                **compare_leaves(graphs, replayed,
-                                                 (state, eager_out))})
+                for _ in range(runs):
+                    st = graphs.tree_map(torch.clone, state)
+                    new_state, eager_out = prog.fn(
+                        st, graphs.tree_map(torch.clone, inputs))
+                    graphs.refill(st, new_state)
+                    eager.append((st, eager_out))
+            rec = {"program": prog.name, "call": k,
+                   **compare_leaves(graphs, replayed, eager[0])}
+            if runs > 1:
+                rec.update(atomic_check(graphs, replayed, eager))
+            self.checks.append(rec)
             return out
         graphs.Program.__call__ = call
         return self
@@ -1281,14 +1330,32 @@ class ProgramCheck:
 
     def summary(self) -> dict:
         c = self.checks
+        bad = [x for x in c if x["int_differ"]
+               or (x["float_differ"] and not x.get("within_spread"))]
         return {"calls": self.calls, "checked": len(c),
                 "programs_checked": sorted({x["program"] for x in c}),
                 "int_differ": sum(x["int_differ"] for x in c),
                 "float_differ": sum(x["float_differ"] for x in c),
                 "float_max_abs": max((x["float_max_abs"] for x in c),
                                      default=0.0),
-                "differing": [x for x in c if x["int_differ"]
-                              or x["float_differ"]][:5]}
+                "atomic_spread": max((x["spread"] for x in c
+                                      if "spread" in x), default=None),
+                "failing": len(bad), "differing": bad[:5]}
+
+
+def atomic_check(graphs, replayed, eager) -> dict:
+    """A replay against several eager runs of a program with float
+    atomics: the largest difference between two eager runs (`spread`),
+    the replay's difference from the nearest run (`nearest`), and whether
+    that is within the spread, the integers equal to the first run's."""
+    def dist(a, b):
+        return max((_max_abs(x.double(), y.double()) for x, y in zip(
+            graphs.tree_leaves(a), graphs.tree_leaves(b))
+            if x.is_floating_point() and x.numel()), default=0.0)
+    spread = max(dist(a, b) for a in eager for b in eager)
+    nearest = min(dist(replayed, e) for e in eager)
+    return {"spread": spread, "nearest": nearest,
+            "within_spread": nearest <= spread}
 
 
 class ReplayTimes:
@@ -1450,7 +1517,7 @@ def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
         return {"iekf_updates": upd, "iekf_rounds": rounds}
 
     def check_failures(tag, chk):
-        if chk["int_differ"] or chk["float_differ"]:
+        if chk["failing"]:
             bad.append(f"{tag}: replay differs from the eager function: "
                        f"{chk['differing']}")
         if not chk["checked"]:
@@ -1563,10 +1630,57 @@ def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
         bad.append(f"a steady sweep synchronized: {rec['no_sync_error']}")
     if not replays.get("lio_step[steady]", {}).get("stages_ms"):
         bad.append("no stage split of the steady step")
+    del pipe, vision
+    out["long_run"] = rec = long_run_programs_check(sim)
+    check_failures("long-run programs", rec["checks"])
+    want = {"windowed_ba", "pose_graph_dense", "compact_map"}
+    if rec["verified_candidates"]:
+        want.add("verify_closure")
+    if rec["map_rebuilds"]:
+        want.add("map_insert")
+    checked = {n.split("[")[0] for n in rec["checks"]["programs_checked"]}
+    if not want <= checked:
+        bad.append(f"long run: checked only {sorted(checked)}")
     emit(out)
     if bad:
         raise AssertionError("graphs phase: " + "; ".join(bad))
     return out
+
+
+# the long-run path's programs (parallel/backend.py, pipeline.py's
+# eviction), by name prefix
+LONG_RUN_PROGRAMS = ("windowed_ba", "verify_closure", "pose_graph",
+                     "compact_map", "map_insert")
+
+
+def long_run_programs_check(sim) -> dict:
+    """Phase graphs' (f): the LIO path at bench.py's LIO shapes on phase
+    slice's simulation with the mapping backend (loop feedback and map
+    rebuild on, BackendConfig's defaults otherwise) and eviction every
+    20 frames, then the final pose-graph solve: the first and every 10th
+    call of each long-run program checked against its eager function
+    (`ProgramCheck`; the pose-graph solves within the spread of their
+    eager runs)."""
+    from sr_livo_tpu_torch.parallel.backend import (BackendConfig,
+                                                    MappingBackend)
+    cfg = bench_lio_cfg(cache_association=True)
+    cfg.enable_map_eviction = True
+    with ProgramCheck(LONG_RUN_PROGRAMS) as chk, \
+            BackendLaunches() as launched:
+        backend = MappingBackend(BackendConfig(feedback_to_filter=True),
+                                 device="cuda")
+        pipe = LivoPipeline(cfg, backend=backend, device="cuda")
+        pipe.process_measurements(bench.cut_all(pipe, sim))
+        backend.optimized_trajectory()
+        torch.cuda.synchronize()
+    return {"frames": len(pipe.records), "keyframes": len(backend.keyframes),
+            "ba_runs": backend.ba_runs,
+            "verified_candidates": backend.n_verified,
+            "loop_closures": backend.n_loop_closures,
+            "map_rebuilds": backend.n_map_rebuilds,
+            "launches_backend": launched.launches,
+            "checks": chk.summary(),
+            "programs": program_record(None, None, backend, pipe)}
 
 
 # ---------------------------------------------------------------------------
@@ -1607,8 +1721,13 @@ def compact_cpu_vs_card(vmap: vm.VoxelMap, location: torch.Tensor,
 
 def pcg_solve_ms(n: int = 100, iters: int = 10) -> dict:
     """Device time of the pose graph's PCG path: a drifting n-node chain
-    with one loop edge, padded as the backend pads it."""
+    with one loop edge, padded as the backend pads it, solved eagerly
+    (`optimize_pose_graph`) and as the backend's program (one Gauss-Newton
+    iteration replayed `iters` times, `optimize_pose_graph_program`),
+    each timed after a first call; the program's iterations checked
+    against the eager function (`ProgramCheck`)."""
     from sr_livo_tpu_torch.parallel import pose_graph as pg
+    graphs = _programs()
     n_pad = 1 << max((n - 1).bit_length(), 3)
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
@@ -1634,19 +1753,103 @@ def pcg_solve_ms(n: int = 100, iters: int = 10) -> dict:
         rot_w=up(np.r_[np.full(n, 50.0), np.zeros(pad)], torch.float32),
         t_w=up(np.r_[np.full(n, 50.0), np.zeros(pad)], torch.float32),
         edge_valid=up(np.arange(e_pad) < n))
-    pg.optimize_pose_graph(graph, iters=1)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    q_out, t_out = pg.optimize_pose_graph(graph, iters=iters)
-    stop.record()
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(t_out).all()):
-        raise AssertionError("PCG pose-graph solve is not finite")
+
+    def timed(solve):
+        solve()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        q_out, t_out = solve()
+        ev[1].record()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(t_out).all()):
+            raise AssertionError("PCG pose-graph solve is not finite")
+        return ev[0].elapsed_time(ev[1]), t_out.clone()
+
+    eager_ms, t_eager = timed(lambda: pg.optimize_pose_graph(graph,
+                                                             iters=iters))
+    programs = {}
+    with ProgramCheck("pose_graph") as chk:
+        program_ms, t_prog = timed(lambda: pg.optimize_pose_graph_program(
+            programs, graph, iters=iters))
+    (prog,) = programs.values()
+    check = chk.summary()
+    if check["failing"] or not check["checked"]:
+        raise AssertionError(f"PCG program differs from eager: {check}")
     return {"nodes": n, "padded_nodes": n_pad, "gn_iterations": iters,
-            "cg_steps": max(96, int(1.5 * n_pad)),
-            "ms": start.elapsed_time(stop)}
+            "cg_steps": max(96, int(1.5 * n_pad)), "ms": eager_ms,
+            "program_ms": program_ms, "program_nodes": prog.nodes,
+            "program_capture_s": prog.capture_s,
+            "program_vs_eager_t_max_abs": _max_abs(t_prog, t_eager),
+            "checks": check}
+
+
+def program_args(prog, want) -> "Capture":
+    """The `knn_plane_assoc` call (for which `want` holds) of a captured
+    program's function, run once eagerly on a copy of its state and on
+    its last inputs: the entry's arguments inside the program."""
+    with Capture("knn_plane_assoc", want, programs=()) as cap:
+        eager_fn(prog)
+    return cap
+
+
+def steady_calls(programs: dict, solve_iters: int = 10) -> dict:
+    """Per long-run program (the one of each kind with the most replays):
+    host launches of one steady call (its inputs refilled from device
+    copies of its last ones, then `solve_iters` replays for a pose-graph
+    iteration, one otherwise) and of its function run eagerly on the same
+    inputs as many times (torch.profiler, the calling thread), the median
+    device ms of 5 steady calls (CUDA events around each), and what a
+    steady call raised under `set_sync_debug_mode("error")` ("" if
+    nothing).  The calls run on the run's final state: an eviction's
+    compacts the pipeline's map again, a rebuild group's inserts again."""
+    graphs = _programs()
+    out = {}
+    for kind in LONG_RUN_PROGRAMS:
+        mine = [p for p in programs.values() if p.name.startswith(kind)]
+        if not mine:
+            continue
+        prog = max(mine, key=lambda p: p.replays)
+        reps = solve_iters if kind == "pose_graph" else 1
+        inputs = graphs.tree_map(torch.clone, prog.inputs)
+
+        def call(prog=prog, inputs=inputs, reps=reps):
+            graphs.call({0: prog}, 0, prog.fn, prog.state, inputs,
+                        repeat=reps)
+
+        state = graphs.tree_map(torch.clone, prog.state)
+
+        def eager(prog=prog, inputs=inputs, reps=reps, state=state):
+            with graphs.counts_kept():
+                st = state
+                for _ in range(reps):
+                    st = prog.fn(st, inputs)[0]
+
+        rec = out[prog.name] = {"replays_per_call": reps}
+        for key, fn in (("host_launches", call),
+                        ("eager_host_launches", eager)):
+            rec[key] = device_profile(
+                lambda fn=fn: (fn(), torch.cuda.synchronize())
+            )["host_launches"]
+        ms = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            call()
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        rec["device_ms"] = float(np.median(ms))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+            rec["sync_error"] = ""
+        except RuntimeError as e:
+            rec["sync_error"] = repr(e)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    return out
 
 
 def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
@@ -1670,10 +1873,7 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         with cuda_knn_calls() as knn_calls, \
                 BackendLaunches() as backend_calls, \
-                Capture("knn_plane_assoc", _is_ba,
-                        in_programs=False) as cap_ba, \
-                Capture("knn_plane_assoc", _is_loop,
-                        in_programs=False) as cap_loop:
+                ReplayTimes() as times:
             backend = MappingBackend(BackendConfig(feedback_to_filter=True),
                                      device="cuda")
             backend_launches = backend_calls.launches
@@ -1696,7 +1896,7 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
             n_timed = pipe.index_frame - n0
             stream.close()
             t1 = time.perf_counter()
-            times, t_opt, _ = backend.optimized_trajectory()
+            kf_times, t_opt, _ = backend.optimized_trajectory()
             solve_ms = (time.perf_counter() - t1) * 1e3
         launches = dict(plane_fit.launches)
         peak = torch.cuda.max_memory_allocated()
@@ -1705,12 +1905,24 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
         n_chunks = len(os.listdir(os.path.join(out_dir, "color_chunks")))
         with open(os.path.join(out_dir, "path_live.txt")) as f:
             n_path = len(f.read().splitlines())
+    replays = times.summary()
     checks = livo_checks(pipe, vision, sim)
-    ate_opt = tum.ate_rmse(times, t_opt, sim.gt_times, sim.gt_pos, align=True)
+    ate_opt = tum.ate_rmse(kf_times, t_opt, sim.gt_times, sim.gt_pos,
+                           align=True)
     expected_backend = 2 * backend.ba_runs + 9 * backend.n_verified
     stages = pipe.timers.report()
     compact = compact_cpu_vs_card(pipe.voxel_map, pipe.state.p, 6.0,
                                   cfg.shapes.map_max_probe)
+    # the backend's two association shapes, inside their programs: the
+    # last BA window on the final map, the last verified candidate
+    progs = {**backend.programs, **pipe.programs}
+    by_kind = {k: [p for p in progs.values() if p.name.startswith(k)]
+               for k in ("windowed_ba", "verify_closure")}
+    cap_ba = (program_args(by_kind["windowed_ba"][-1], _is_ba)
+              if by_kind["windowed_ba"] else None)
+    cap_loop = (program_args(by_kind["verify_closure"][-1], _is_loop)
+                if by_kind["verify_closure"] else None)
+    steady = steady_calls(progs)
     out = {"phase": "longrun", "measurements": len(meas), "frames": frames,
            "timed_frames": n_timed, "timed_seconds": seconds,
            "sweeps_images_per_s": n_timed / seconds,
@@ -1730,7 +1942,9 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
                           for k in ("mean_ms", "max_ms", "count")},
            "stages_ms": {k: v["mean_ms"] for k, v in stages.items()},
            "stages_max_ms": {k: v["max_ms"] for k, v in stages.items()},
-           "programs": program_record(vision, pipe.engine),
+           "programs": program_record(vision, pipe.engine, backend, pipe),
+           "replay_device_ms": replays,
+           "steady_calls": steady,
            "pose_graph_solve_ms": solve_ms,
            "pose_graph_pcg": pcg_solve_ms(),
            "peak_memory_bytes": peak,
@@ -1762,8 +1976,20 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
     if others or knn_calls.n:
         bad.append(f"the long-run path launched {others} and called the "
                    f"plain kNN {knn_calls.n} times on CUDA")
-    if cap_ba.args is None or (backend.n_verified and cap_loop.args is None):
+    if cap_ba is None or cap_ba.args is None or (
+            backend.n_verified and (cap_loop is None
+                                    or cap_loop.args is None)):
         bad.append("a backend association shape was not captured")
+    synced = {k: v["sync_error"] for k, v in steady.items()
+              if v["sync_error"]}
+    if synced:
+        bad.append(f"a steady long-run program call synchronized: {synced}")
+    kinds = {n.split("[")[0] for n in steady}
+    if not {"windowed_ba", "compact_map"} <= kinds or (
+            backend.n_verified and "verify_closure" not in kinds) or (
+            backend.n_feedback_applied and not {
+                "pose_graph_dense", "map_insert"} <= kinds):
+        bad.append(f"long-run programs that ran: {sorted(kinds)}")
     if bad:
         raise AssertionError("longrun phase: " + "; ".join(bad))
     return out, {"ba": cap_ba, "loop": cap_loop}
@@ -1811,7 +2037,7 @@ def backend_fused_phase(captures: dict) -> dict:
     cuda = torch.device("cuda")
     results = {}
     for name, bars in BACKEND_SHAPES.items():
-        if captures[name].args is None:
+        if captures[name] is None or captures[name].args is None:
             continue
         vmap, (world, valid, thr), kw = captures[name].args_on(cuda)
         pair = fused_assoc_pair(vmap, world, valid, thr, kw)

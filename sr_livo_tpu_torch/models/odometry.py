@@ -346,19 +346,10 @@ class LioEngine:
                self.cfg.retry_wider_neighborhood, type(sweep).__name__,
                prev_poses is None,
                tuple(tuple(t.shape) for t in graphs.tree_leaves(inputs)))
-        prog = self.programs.get(key)
-        if prog is None:
-            n = (sweep.pts_q if isinstance(sweep, WireSweep)
-                 else sweep.raw_pts).shape[0]
-            _subsample_priority(n, self.device)       # uploaded before capture
-            # the state is adopted; the inputs are the program's own
-            # copies, since refills write into them
-            prog = self.programs[key] = graphs.Program(
-                self.step_fn(phase), (state, voxel_map),
-                graphs.tree_map(torch.clone, inputs),
-                name=f"lio_step[{phase}]")
-        else:
-            graphs.refill(prog.state, (state, voxel_map))
-            graphs.refill(prog.inputs, inputs)
-        out = prog()
-        return out._replace(state=prog.state[0], voxel_map=prog.state[1])
+        n = (sweep.pts_q if isinstance(sweep, WireSweep)
+             else sweep.raw_pts).shape[0]
+        _subsample_priority(n, self.device)     # uploaded before a capture
+        (state, voxel_map), out = graphs.call(
+            self.programs, key, self.step_fn(phase), (state, voxel_map),
+            inputs, name=f"lio_step[{phase}]")
+        return out._replace(state=state, voxel_map=voxel_map)

@@ -188,17 +188,9 @@ class VisionModule:
         it; the frame program copies it in before then)."""
         inputs = InsertInputs(pts_world, frame_valid, success,
                               self._scalar(obs_time))
-        key = tuple(pts_world.shape)
-        prog = self.insert_programs.get(key)
-        if prog is None:
-            prog = self.insert_programs[key] = graphs.Program(
-                self.insert_fn(), self.color_map,
-                graphs.tree_map(torch.clone, inputs), name="color_insert")
-        else:
-            graphs.refill(prog.state, self.color_map)
-            graphs.refill(prog.inputs, inputs)
-        self.n_new_visited = prog()
-        self.color_map = prog.state
+        self.color_map, self.n_new_visited = graphs.call(
+            self.insert_programs, tuple(pts_world.shape), self.insert_fn(),
+            self.color_map, inputs, name="color_insert")
 
     def insert_fn(self):
         """The colored-map insert program's function: fn(ColorMap,

@@ -18,10 +18,11 @@ same 32-bit patterns, so `keys`, `sig`, `counts` and `point_ids` come out
 bit-identical for the same insert sequence.
 
 Unlike the JAX package (which returns new arrays and donates the old map),
-`insert` UPDATES THE MAP IN PLACE and returns it.  `insert`, `insert_gate`
-and `lookup` read nothing back to the host in capture form (their loops
-run masked rounds up to a proven bound, `utils.graphs`), so the LIO step
-program captures them.
+`insert` UPDATES THE MAP IN PLACE and returns it.  `insert`, `insert_gate`,
+`lookup` and `compact_map` read nothing back to the host in capture form
+(their loops run masked rounds up to a proven bound, `utils.graphs`), so
+the LIO step program captures them, and `compact_map_program` and
+`insert_program` run them as programs of their own.
 """
 
 from __future__ import annotations
@@ -462,7 +463,8 @@ def compact_map(vmap: VoxelMap, location: torch.Tensor, *,
     re-hashed with the claim-round arbitration of insert(), so probe chains
     come out coherent and minimal.  `vmap` is left as it was; its tensors
     are freed when the caller drops its last reference (work already
-    queued on them is ordered before any reuse).
+    queued on them is ordered before any reuse).  Reads nothing back to
+    the host in capture form (`compact_map_program` captures it).
 
     Returns (new_map, n_dropped): n_dropped (0-d int32, on the device)
     counts voxels that could not be re-placed within `max_probe`."""
@@ -481,9 +483,15 @@ def compact_map(vmap: VoxelMap, location: torch.Tensor, *,
     # Claim rounds at voxel granularity: the keys are distinct, so each
     # pending voxel targets the first empty slot of its chain in the new
     # table, scatter-min elects one winner per slot and the losers re-probe
-    # past it; one host read per round.
+    # past it.  At most max_probe + 1 rounds have a pending voxel, as in
+    # insert(): a loser's first empty probe index strictly grows, so in
+    # round max_probe + 1 none is left on its chain and it drops out.
+    # Masked rounds up to that bound are the JAX `while_loop`
+    # (sr_livo_tpu/ops/voxel_map.py:553; `utils.graphs.go_on`).
     pending = live
-    while bool(pending.any()):
+    for _ in range(max_probe + 1):
+        if not graphs.go_on(pending.any()):
+            break
         cand, _mi, ei = _probe_chain(new_sig, coords, max_probe)
         can = pending & (ei < max_probe)
         tgt = torch.gather(cand, -1, torch.clamp(
@@ -492,23 +500,71 @@ def compact_map(vmap: VoxelMap, location: torch.Tensor, *,
                            device=dev).scatter_reduce_(
             0, torch.where(can, tgt, capacity), idx, "amin")
         winner = can & (claim[tgt] == idx)
-        w = torch.nonzero(winner).squeeze(1)      # winners hold distinct slots
-        new_keys[tgt[w]] = coords[w]
-        new_sig[tgt[w]] = want[w]
+        # winners hold distinct slots
+        masked_set(new_keys, tgt, coords, winner)
+        masked_set(new_sig, tgt, want, winner)
         slot_new = torch.where(winner, tgt, slot_new)
         pending = pending & ~winner & (ei < max_probe)
     placed = live & (slot_new >= 0)
     n_dropped = (torch.sum(live) - torch.sum(placed)).to(torch.int32)
 
-    # Move the placed blocks to their new homes with whole-block writes.
-    src = torch.nonzero(placed).squeeze(1)
-    dst = slot_new[src]
+    # Move the placed blocks to their (distinct) new homes with whole-block
+    # writes.
     new_points = torch.zeros_like(vmap.points)
     new_ids = torch.full_like(vmap.point_ids, -1)
     new_counts = torch.zeros_like(vmap.counts)
-    new_points.view(capacity, K, 3)[dst] = vmap.points.view(
-        capacity, K, 3)[src]
-    new_ids.view(capacity, K)[dst] = vmap.point_ids.view(capacity, K)[src]
-    new_counts[dst] = vmap.counts[src]
+    masked_set(new_points.view(capacity, K, 3), slot_new,
+               vmap.points.view(capacity, K, 3), placed)
+    masked_set(new_ids.view(capacity, K), slot_new,
+               vmap.point_ids.view(capacity, K), placed)
+    masked_set(new_counts, slot_new, vmap.counts, placed)
     return VoxelMap(keys=new_keys, sig=new_sig, points=new_points,
                     counts=new_counts, point_ids=new_ids), n_dropped
+
+
+def compact_map_program(programs: dict, vmap: VoxelMap,
+                        location: torch.Tensor, *, distance: float,
+                        max_probe: int) -> Tuple[VoxelMap, torch.Tensor]:
+    """`compact_map` as one captured program kept in `programs`
+    (`utils.graphs.call`; the JAX package's jitted `compact_map` with the
+    map donated, sr_livo_tpu/ops/voxel_map.py:576), IN PLACE: its state
+    is `vmap`'s tensors (the pipeline's map, the step program's buffers),
+    into which the graph copies the new table.  The new table is built
+    in scratch that the program holds in its graph's memory pool, a
+    second table of `vmap`'s size (89 MB at 2^18 slots x 20 points:
+    points 63 MB, point ids 21 MB, keys, signatures and counts 5 MB),
+    since the old table is read while the new one is built.  Returns
+    (vmap, n_dropped), n_dropped the program's output, which its next
+    call overwrites."""
+    def fn(old, loc):
+        return compact_map(old, loc, distance=distance, max_probe=max_probe)
+    key = ("compact_map", tuple(vmap.points.shape), vmap.counts.shape[0],
+           distance, max_probe)
+    return graphs.call(programs, key, fn, vmap, location, name="compact_map")
+
+
+def insert_program(programs: dict, vmap: VoxelMap, pts: torch.Tensor,
+                   valid: torch.Tensor, voxel_size: float,
+                   min_distance: float, max_probe: int
+                   ) -> Tuple[VoxelMap, torch.Tensor]:
+    """`insert(vmap, pts, valid, ...)` as one captured program kept in
+    `programs` (the JAX package's jitted `insert`,
+    sr_livo_tpu/ops/voxel_map.py:434), IN PLACE into `vmap`, the
+    program's adopted state.  Returns (vmap, accepted), accepted the
+    program's output, which its next call overwrites."""
+    def fn(m, inputs):
+        return insert(m, *inputs, voxel_size, min_distance, max_probe)
+    key = ("insert", tuple(vmap.points.shape), vmap.counts.shape[0],
+           tuple(pts.shape), voxel_size, min_distance, max_probe)
+    return graphs.call(programs, key, fn, vmap, (pts, valid),
+                       name="map_insert")
+
+
+def clear_map(vmap: VoxelMap) -> VoxelMap:
+    """Empties `vmap` IN PLACE (make_map's contents) and returns it."""
+    vmap.keys.fill_(EMPTY)
+    vmap.sig.fill_(SIG_EMPTY)
+    vmap.points.zero_()
+    vmap.counts.zero_()
+    vmap.point_ids.fill_(-1)
+    return vmap

@@ -4,7 +4,8 @@
 A sliding window of keyframe poses is jointly refined against the voxel
 map with point-to-plane factors plus inter-keyframe odometry priors, by
 Gauss-Newton on the banded 6K x 6K normal system (keyframe 0 gauge-fixed).
-`windowed_ba` runs on one device; `make_sharded_windowed_ba` partitions
+`windowed_ba` runs on one device (`windowed_ba_program` as one captured
+program); `make_sharded_windowed_ba` partitions
 the keyframes and the map blocks over the map mesh (parallel.mesh).
 
 The association (kNN over the live map, neighbourhood PCA, closest
@@ -26,7 +27,7 @@ from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.ops import voxel_map as vm
 from sr_livo_tpu_torch.parallel import routing
 from sr_livo_tpu_torch.parallel.mesh import Mesh
-from sr_livo_tpu_torch.utils import lie
+from sr_livo_tpu_torch.utils import graphs, lie
 
 
 class KeyframeWindow(NamedTuple):
@@ -141,6 +142,28 @@ def windowed_ba(voxel_map: vm.VoxelMap, window: KeyframeWindow,
         dx = _assemble_and_solve(hs, bs, q, t, q_odo, t_odo, window.kf_valid,
                                  prior_rot_w, prior_t_w, damping)
         q, t = _apply(q, t, dx)
+    return q, t
+
+
+def windowed_ba_program(programs: dict, voxel_map: vm.VoxelMap,
+                        window: KeyframeWindow, q_odo: torch.Tensor,
+                        t_odo: torch.Tensor, **kw
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`windowed_ba` as one captured program kept in `programs`
+    (`utils.graphs.call`; the JAX package's jitted `windowed_ba`,
+    sr_livo_tpu/parallel/ba.py:133), keyed by the window's and the map's
+    shapes and `kw`.  The live map is the program's state, adopted and
+    read in place (the pipeline's map: the step program's buffers), never
+    copied.  The same ops as `windowed_ba`, so the same bits on the CPU.
+    Returns the program's (q, t), which its next call overwrites."""
+    def fn(live_map, inputs):
+        return live_map, windowed_ba(live_map, *inputs, **kw)
+    key = ("windowed_ba", tuple(window.points.shape),
+           tuple(voxel_map.points.shape), tuple(sorted(kw.items())))
+    _, (q, t) = graphs.call(
+        programs, key, fn, voxel_map, (window, q_odo, t_odo),
+        name=f"windowed_ba[{window.points.shape[0]}x"
+             f"{window.points.shape[1]}]")
     return q, t
 
 

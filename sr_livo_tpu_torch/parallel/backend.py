@@ -10,10 +10,16 @@ rebuilds the frontend map at the loop-consistent poses.
 `optimized_trajectory()` returns the loop-consistent path.
 
 Keyframe payloads live in host memory as numpy arrays, as in the JAX
-package; they go to the backend's device when a solve needs them.  Host
-reads happen where the JAX backend has them: the success flag and the
-payload of a new keyframe (every `keyframe_interval`), each BA result,
-each verified candidate's fitness and every pose-graph result.
+package; they go to the backend's device when a solve needs them.  Each
+solve the JAX package jits runs as one captured program
+(`utils.graphs.call`, kept in `MappingBackend.programs`): the windowed
+BA, the loop-closure check, the pose-graph solve (one Gauss-Newton
+iteration replayed) and the map rebuild's group insert, which reads
+nothing back to the host.  Host reads happen where the JAX backend has
+them: the success flag and the payload of a new keyframe (every
+`keyframe_interval`), each BA result, the verified candidates' fitness
+and observability (once, after the last candidate of a check) and every
+pose-graph result.
 """
 
 from __future__ import annotations
@@ -102,6 +108,7 @@ class MappingBackend:
         self._pending_feedback = False
         self.n_feedback_applied = 0
         self.n_map_rebuilds = 0
+        self.programs: dict = {}         # the solves' captured programs
 
     def _up(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -200,10 +207,11 @@ class MappingBackend:
         """A fresh frontend voxel table filled with every retained keyframe
         payload at its (now loop-consistent) stored pose, oldest first, in
         batched inserts of 16 keyframes each; same-voxel rows of one batch
-        skip the mutual distance check, as in every batched insert."""
+        skip the mutual distance check, as in every batched insert.  The
+        table is the pipeline's own, emptied and filled IN PLACE (the step
+        program's buffers), one insert program replay per group."""
         cfg = pipeline.cfg
-        m = vm.make_map(cfg.shapes.map_capacity, cfg.shapes.map_voxel_points,
-                        device=pipeline.device)
+        m = vm.clear_map(pipeline.voxel_map)
         icp, odo = cfg.icp, cfg.odometry_options
         group = 16
         rows_per = max((f.points.shape[0] for f in self.keyframes),
@@ -225,8 +233,9 @@ class MappingBackend:
                 chunk + [np.zeros((rows_per, 3), np.float32)] * pad)
             val = np.concatenate(
                 vs[g:g + group] + [np.zeros((rows_per,), bool)] * pad)
-            m, _ = vm.insert(
-                m, torch.as_tensor(world, device=pipeline.device),
+            m, _ = vm.insert_program(
+                self.programs, m,
+                torch.as_tensor(world, device=pipeline.device),
                 torch.as_tensor(val, device=pipeline.device),
                 icp.size_voxel_map, odo.min_distance_points,
                 cfg.shapes.map_max_probe)
@@ -247,8 +256,8 @@ class MappingBackend:
             pt_valid=self._up(np.stack([f.valid for f in kfs])),
             kf_valid=torch.ones(k, dtype=torch.bool, device=self.device))
         odo = [_edge(a.q, a.t, b.q, b.t) for a, b in zip(kfs[:-1], kfs[1:])]
-        q_new, t_new = ba_mod.windowed_ba(
-            voxel_map, window,
+        q_new, t_new = ba_mod.windowed_ba_program(
+            self.programs, voxel_map, window,
             self._up(np.stack([e[0] for e in odo])),
             self._up(np.stack([e[1] for e in odo])),
             voxel_size=self.cfg.ba_voxel_size,
@@ -268,24 +277,35 @@ class MappingBackend:
                                    min_gap=self.cfg.loop_min_gap,
                                    max_pairs=self.cfg.loop_max_pairs)
         existing = {(e["i"], e["j"]) for e in self.edges}
+        checked = []      # (i, j, [q_meas, t_meas, fitness, t_obs]) (9,)
         for (i, j) in cands:
             if (i, j) in existing:
                 continue
             fi, fj = self.keyframes[i], self.keyframes[j]
             if fi.points.shape[0] == 0 or fj.points.shape[0] == 0:
                 continue       # condensed keyframe: payload retired
-            res = lc.verify_closure(
+            res = lc.verify_closure_program(
+                self.programs,
                 self._up(fi.points), self._up(fi.valid),
                 self._up(fj.points), self._up(fj.valid),
                 self._up(fi.q), self._up(fi.t),
                 self._up(fj.q), self._up(fj.t))
+            # a copy: the next candidate's replay overwrites the outputs
+            checked.append((i, j, torch.cat([
+                res.q_meas, res.t_meas, res.fitness[None],
+                res.t_observability[None]])))
             self.n_verified += 1
-            if (float(res.fitness) >= self.cfg.loop_fitness_threshold
-                    and float(res.t_observability)
-                    >= self.cfg.loop_min_observability):
+        if not checked:
+            return
+        # one host read for the whole check: no verification depends on
+        # an earlier acceptance (`existing` is fixed above), so the edges
+        # come out as when each was read in turn
+        rows = torch.stack([r for (_, _, r) in checked]).cpu().numpy()
+        for (i, j, _), row in zip(checked, rows):
+            if (float(row[7]) >= self.cfg.loop_fitness_threshold
+                    and float(row[8]) >= self.cfg.loop_min_observability):
                 self.edges.append(dict(
-                    i=i, j=j, q=res.q_meas.cpu().numpy(),
-                    t=res.t_meas.cpu().numpy(),
+                    i=i, j=j, q=row[0:4].copy(), t=row[4:7].copy(),
                     rot_w=self.cfg.loop_rot_w, t_w=self.cfg.loop_t_w))
                 self.n_loop_closures += 1
                 self._pending_feedback = True
@@ -331,5 +351,6 @@ class MappingBackend:
             t_w=self._up(pad1([d["t_w"] for d in self.edges], 0.0,
                               np.float32)),
             edge_valid=self._up(np.arange(e_pad) < e))
-        q, t = pg.optimize_pose_graph(graph, iters=iters)
+        q, t = pg.optimize_pose_graph_program(self.programs, graph,
+                                              iters=iters)
         return times, t.cpu().numpy()[:n], q.cpu().numpy()[:n]

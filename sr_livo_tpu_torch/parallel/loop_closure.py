@@ -6,7 +6,8 @@ verified by point-to-plane Gauss-Newton alignment of the query keyframe's
 scan against a temporary voxel map of the target keyframe's scan.  Each
 association (8 Gauss-Newton rounds and the fitness pass) is one launch of
 the plane kernel's fused entry `plane_fit.knn_plane_assoc` on CUDA
-tensors: 9 launches per verified candidate.
+tensors: 9 launches per verified candidate, nodes of one captured program
+(`verify_closure_program`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from sr_livo_tpu_torch.ops import neighborhood as nb_ops
 from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.ops import voxel_map as vm
 from sr_livo_tpu_torch.parallel import pose_graph as pg
-from sr_livo_tpu_torch.utils import lie
+from sr_livo_tpu_torch.utils import graphs, lie
 
 
 def find_candidates(positions: np.ndarray, *, radius: float = 2.0,
@@ -87,7 +88,7 @@ def verify_closure(points_i: torch.Tensor, valid_i: torch.Tensor,
     """Gauss-Newton-align keyframe j's body-frame scan against a temporary
     map of keyframe i's scan; returns the refined relative edge and its
     fitness.  Reads nothing back to the host but the temporary map's
-    claim rounds."""
+    claim rounds, and nothing in capture form (`utils.graphs`)."""
     f = dict(dtype=points_i.dtype, device=points_i.device)
     world_i = lie.quat_rotate(q_i, points_i) + t_i
     tmp = vm.make_map(map_capacity, 20, device=points_i.device)
@@ -134,3 +135,21 @@ def verify_closure(points_i: torch.Tensor, valid_i: torch.Tensor,
     q_meas, t_meas = pg.edge_from_poses(q_i, t_i, q, t)
     return ClosureResult(q_meas=q_meas, t_meas=t_meas, fitness=fitness,
                          mean_residual=mean_res, t_observability=t_obs)
+
+
+def verify_closure_program(programs: dict, *args: torch.Tensor, **kw
+                           ) -> ClosureResult:
+    """`verify_closure(*args, **kw)` as one captured program kept in
+    `programs` (`utils.graphs.call`; the JAX package's jitted
+    `verify_closure`, sr_livo_tpu/parallel/loop_closure.py:69), keyed by
+    the payload shapes and `kw`: a pure function, so its temporary map
+    lives in the graph's memory pool, held by the program and filled anew
+    in the graph on each replay, and its claim rounds run masked up to
+    their bound.  The same bits as `verify_closure` on the CPU.  Returns
+    the program's outputs, which its next call overwrites."""
+    def fn(_, inputs):
+        return None, verify_closure(*inputs, **kw)
+    key = (("verify_closure",) + tuple(tuple(a.shape) for a in args)
+           + tuple(sorted(kw.items())))
+    return graphs.call(programs, key, fn, None, args,
+                       name="verify_closure")[1]

@@ -8,7 +8,9 @@ the normal system is assembled by accumulating index writes and solved
 densely (small graphs) or matrix-free by preconditioned CG (large ones).
 Node 0 is gauge-fixed.  Solves use `solve_ex` / `inv_ex`, which never read
 a status back to the host.  On CUDA the accumulations use atomics, so the
-sums are not bitwise repeatable there.
+sums are not bitwise repeatable there.  `optimize_pose_graph_program` runs
+a solve as one Gauss-Newton iteration's captured program, replayed
+`iters` times.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from sr_livo_tpu_torch.utils import lie
+from sr_livo_tpu_torch.utils import graphs, lie
 
 
 class PoseGraph(NamedTuple):
@@ -92,43 +94,107 @@ def _linearize(graph: PoseGraph, q, t):
     return res, ji, jj, _edge_weights(graph)
 
 
+def _dense_iteration(graph: PoseGraph, q, t, damping: float):
+    """One Gauss-Newton iteration with a dense (6N, 6N) solve (of the
+    graph's edges from the poses q, t)."""
+    n = q.shape[0]
+    dim = 6 * n
+    f = dict(dtype=q.dtype, device=q.device)
+    e_i, e_j = graph.edge_i, graph.edge_j
+    res, ji, jj, w = _linearize(graph, q, t)
+    ji_w = ji * w[:, :, None]
+    jj_w = jj * w[:, :, None]
+    h_ii = torch.einsum("eki,ekj->eij", ji_w, ji)
+    h_jj = torch.einsum("eki,ekj->eij", jj_w, jj)
+    h_ij = torch.einsum("eki,ekj->eij", ji_w, jj)
+    b_i = torch.einsum("eki,ek->ei", ji_w, res)
+    b_j = torch.einsum("eki,ek->ei", jj_w, res)
+
+    H = torch.zeros((n, n, 6, 6), **f)
+    H.index_put_((e_i, e_i), h_ii, accumulate=True)
+    H.index_put_((e_j, e_j), h_jj, accumulate=True)
+    H.index_put_((e_i, e_j), h_ij, accumulate=True)
+    H.index_put_((e_j, e_i), h_ij.transpose(-1, -2), accumulate=True)
+    b = torch.zeros((n, 6), **f)
+    b.index_add_(0, e_i, b_i)
+    b.index_add_(0, e_j, b_j)
+
+    H_full = H.permute(0, 2, 1, 3).reshape(dim, dim)
+    # gauge fix node 0 + damping
+    gauge = torch.zeros((dim, dim), **f)
+    gauge[0:6, 0:6] = torch.eye(6, **f) * 1e8
+    H_full = (H_full + gauge) + torch.eye(dim, **f) * damping
+    dx = -torch.linalg.solve_ex(H_full, b.reshape(dim)).result
+    return _retract(q, t, dx.reshape(n, 6))
+
+
+def _pcg_iteration(graph: PoseGraph, q, t, damping: float, cg_iters: int):
+    """One Gauss-Newton iteration with exactly `cg_iters` steps of a
+    matrix-free, block-Jacobi preconditioned CG."""
+    n = q.shape[0]
+    f = dict(dtype=q.dtype, device=q.device)
+    e_i, e_j = graph.edge_i, graph.edge_j
+    eye6 = torch.eye(6, **f)
+    gauge = torch.zeros((n, 1), **f)
+    gauge[0] = 1e8
+    res, ji, jj, w = _linearize(graph, q, t)
+
+    def matvec(x):                                       # x (n, 6)
+        rx = (torch.einsum("eij,ej->ei", ji, x[e_i])
+              + torch.einsum("eij,ej->ei", jj, x[e_j])) * w
+        y = torch.zeros((n, 6), **f)
+        y.index_add_(0, e_i, torch.einsum("eij,ei->ej", ji, rx))
+        y.index_add_(0, e_j, torch.einsum("eij,ei->ej", jj, rx))
+        y = y + damping * x
+        return y + gauge * x                             # gauge fix
+
+    wres = res * w
+    b = torch.zeros((n, 6), **f)
+    b.index_add_(0, e_i, torch.einsum("eij,ei->ej", ji, wres))
+    b.index_add_(0, e_j, torch.einsum("eij,ei->ej", jj, wres))
+
+    # block-Jacobi preconditioner from the per-node diagonal blocks
+    ji_w = ji * w[:, :, None]
+    jj_w = jj * w[:, :, None]
+    diag = torch.zeros((n, 6, 6), **f)
+    diag.index_add_(0, e_i, torch.einsum("eki,ekj->eij", ji_w, ji))
+    diag.index_add_(0, e_j, torch.einsum("eki,ekj->eij", jj_w, jj))
+    diag = diag + damping * eye6[None]
+    diag = diag + gauge[:, :, None] * eye6[None]
+    m_inv = torch.linalg.inv_ex(diag).inverse
+
+    def prec(r):
+        return torch.einsum("nij,nj->ni", m_inv, r)
+
+    # CG on H dx = -b
+    x = torch.zeros((n, 6), **f)
+    r = -b
+    z = prec(r)
+    p = z
+    rz = torch.sum(r * z)
+    zero = torch.zeros((), **f)
+    for _k in range(cg_iters):
+        hp = matvec(p)
+        denom = torch.sum(p * hp)
+        alpha = torch.where(torch.abs(denom) > 1e-30, rz / denom, zero)
+        x = x + alpha * p
+        r = r - alpha * hp
+        z = prec(r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(torch.abs(rz) > 1e-30, rz_new / rz, zero)
+        p = z + beta * p
+        rz = rz_new
+    return _retract(q, t, x)
+
+
 def optimize_pose_graph_dense(graph: PoseGraph, *, iters: int = 10,
                               damping: float = 1e-4
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gauss-Newton over the graph with a dense (6N, 6N) solve; returns the
     refined (q (N, 4), t (N, 3))."""
-    n = graph.q.shape[0]
-    dim = 6 * n
-    f = dict(dtype=graph.q.dtype, device=graph.q.device)
-    e_i, e_j = graph.edge_i, graph.edge_j
-    eye_dim = torch.eye(dim, **f)
-    gauge = torch.zeros((dim, dim), **f)
-    gauge[0:6, 0:6] = torch.eye(6, **f) * 1e8
     q, t = graph.q, graph.t
     for _ in range(iters):
-        res, ji, jj, w = _linearize(graph, q, t)
-        ji_w = ji * w[:, :, None]
-        jj_w = jj * w[:, :, None]
-        h_ii = torch.einsum("eki,ekj->eij", ji_w, ji)
-        h_jj = torch.einsum("eki,ekj->eij", jj_w, jj)
-        h_ij = torch.einsum("eki,ekj->eij", ji_w, jj)
-        b_i = torch.einsum("eki,ek->ei", ji_w, res)
-        b_j = torch.einsum("eki,ek->ei", jj_w, res)
-
-        H = torch.zeros((n, n, 6, 6), **f)
-        H.index_put_((e_i, e_i), h_ii, accumulate=True)
-        H.index_put_((e_j, e_j), h_jj, accumulate=True)
-        H.index_put_((e_i, e_j), h_ij, accumulate=True)
-        H.index_put_((e_j, e_i), h_ij.transpose(-1, -2), accumulate=True)
-        b = torch.zeros((n, 6), **f)
-        b.index_add_(0, e_i, b_i)
-        b.index_add_(0, e_j, b_j)
-
-        H_full = H.permute(0, 2, 1, 3).reshape(dim, dim)
-        # gauge fix node 0 + damping
-        H_full = (H_full + gauge) + eye_dim * damping
-        dx = -torch.linalg.solve_ex(H_full, b.reshape(dim)).result
-        q, t = _retract(q, t, dx.reshape(n, 6))
+        q, t = _dense_iteration(graph, q, t, damping)
     return q, t
 
 
@@ -140,74 +206,60 @@ def optimize_pose_graph_pcg(graph: PoseGraph, *, iters: int = 10,
     list (two accumulations per edge, O(E) per product), the gauge fix and
     the damping ride as diagonal terms.  About 15 launches per CG step on
     CUDA."""
-    n = graph.q.shape[0]
-    f = dict(dtype=graph.q.dtype, device=graph.q.device)
-    e_i, e_j = graph.edge_i, graph.edge_j
-    eye6 = torch.eye(6, **f)
-    gauge = torch.zeros((n, 1), **f)
-    gauge[0] = 1e8
     q, t = graph.q, graph.t
     for _ in range(iters):
-        res, ji, jj, w = _linearize(graph, q, t)
-
-        def matvec(x):                                   # x (n, 6)
-            rx = (torch.einsum("eij,ej->ei", ji, x[e_i])
-                  + torch.einsum("eij,ej->ei", jj, x[e_j])) * w
-            y = torch.zeros((n, 6), **f)
-            y.index_add_(0, e_i, torch.einsum("eij,ei->ej", ji, rx))
-            y.index_add_(0, e_j, torch.einsum("eij,ei->ej", jj, rx))
-            y = y + damping * x
-            return y + gauge * x                         # gauge fix
-
-        wres = res * w
-        b = torch.zeros((n, 6), **f)
-        b.index_add_(0, e_i, torch.einsum("eij,ei->ej", ji, wres))
-        b.index_add_(0, e_j, torch.einsum("eij,ei->ej", jj, wres))
-
-        # block-Jacobi preconditioner from the per-node diagonal blocks
-        ji_w = ji * w[:, :, None]
-        jj_w = jj * w[:, :, None]
-        diag = torch.zeros((n, 6, 6), **f)
-        diag.index_add_(0, e_i, torch.einsum("eki,ekj->eij", ji_w, ji))
-        diag.index_add_(0, e_j, torch.einsum("eki,ekj->eij", jj_w, jj))
-        diag = diag + damping * eye6[None]
-        diag = diag + gauge[:, :, None] * eye6[None]
-        m_inv = torch.linalg.inv_ex(diag).inverse
-
-        def prec(r):
-            return torch.einsum("nij,nj->ni", m_inv, r)
-
-        # CG on H dx = -b
-        x = torch.zeros((n, 6), **f)
-        r = -b
-        z = prec(r)
-        p = z
-        rz = torch.sum(r * z)
-        zero = torch.zeros((), **f)
-        for _k in range(cg_iters):
-            hp = matvec(p)
-            denom = torch.sum(p * hp)
-            alpha = torch.where(torch.abs(denom) > 1e-30, rz / denom, zero)
-            x = x + alpha * p
-            r = r - alpha * hp
-            z = prec(r)
-            rz_new = torch.sum(r * z)
-            beta = torch.where(torch.abs(rz) > 1e-30, rz_new / rz, zero)
-            p = z + beta * p
-            rz = rz_new
-        q, t = _retract(q, t, x)
+        q, t = _pcg_iteration(graph, q, t, damping, cg_iters)
     return q, t
+
+
+def _solver(n: int, dense_below: int) -> Tuple[str, int]:
+    """The front door's choice for n nodes: ("dense", 0) or ("pcg",
+    cg_iters), cg_iters scaling with the node count (a chain's
+    long-wavelength mode needs about N CG steps under block-Jacobi)."""
+    if n <= dense_below:
+        return "dense", 0
+    return "pcg", max(96, int(1.5 * n))
 
 
 def optimize_pose_graph(graph: PoseGraph, *, iters: int = 10,
                         damping: float = 1e-4, dense_below: int = 64
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Solver front door: the dense solve for graphs of at most
-    `dense_below` nodes, matrix-free PCG beyond, with cg_iters scaling with
-    the node count (a chain's long-wavelength mode needs about N CG steps
-    under block-Jacobi)."""
-    n = graph.q.shape[0]
-    if n <= dense_below:
+    `dense_below` nodes, matrix-free PCG beyond (`_solver`)."""
+    solver, cg_iters = _solver(graph.q.shape[0], dense_below)
+    if solver == "dense":
         return optimize_pose_graph_dense(graph, iters=iters, damping=damping)
     return optimize_pose_graph_pcg(graph, iters=iters, damping=damping,
-                                   cg_iters=max(96, int(1.5 * n)))
+                                   cg_iters=cg_iters)
+
+
+def _iteration_fn(solver: str, damping: float, cg_iters: int):
+    """The pose-graph program's function, one Gauss-Newton iteration of
+    `solver`: fn((q, t), graph without q and t) -> ((q, t), None)."""
+    def fn(pose, graph: PoseGraph):
+        if solver == "dense":
+            return _dense_iteration(graph, *pose, damping), None
+        return _pcg_iteration(graph, *pose, damping, cg_iters), None
+    return fn
+
+
+def optimize_pose_graph_program(programs: dict, graph: PoseGraph, *,
+                                iters: int = 10, damping: float = 1e-4,
+                                dense_below: int = 64
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`optimize_pose_graph` as a captured program kept in `programs`
+    (`utils.graphs.call`): one Gauss-Newton iteration, keyed by the
+    solver, the node and edge counts and cg_iters, replayed `iters` times
+    back to back (the JAX package's jitted `fori_loop`s,
+    sr_livo_tpu/parallel/pose_graph.py:74,127).  The same ops as the
+    eager function, so the same bits on the CPU.  Returns the program's
+    (q, t) buffers, which its next solve overwrites."""
+    n, e = graph.q.shape[0], graph.edge_i.shape[0]
+    solver, cg_iters = _solver(n, dense_below)
+    pose, _ = graphs.call(
+        programs, ("pose_graph", solver, n, e, cg_iters, damping),
+        _iteration_fn(solver, damping, cg_iters),
+        # the program's own pose buffers, not the caller's graph
+        (graph.q.clone(), graph.t.clone()), graph._replace(q=None, t=None),
+        name=f"pose_graph_{solver}[{n}]", repeat=iters)
+    return pose

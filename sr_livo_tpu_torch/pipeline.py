@@ -94,6 +94,7 @@ class LivoPipeline:
         self._pending_records: list = []     # (time, rendering, (19,) dev)
         self.n_retired = 0                   # frames retired to disk/stream
         self._evict_dropped = None           # last compact_map's drop count
+        self.programs: dict = {}             # the eviction's program
         if cfg.retire_frames and stream is None:
             # retirement appends; start the output files fresh
             os.makedirs(cfg.output_path, exist_ok=True)
@@ -307,10 +308,11 @@ class LivoPipeline:
                 and self.index_frame % self.cfg.eviction_every_n_frames == 0):
             # Slot-reclaiming eviction (robin_map erase semantics,
             # lioOptimization.cpp:556-572): a fresh table of the near
-            # voxels.  The dropped count stays on the device.
+            # voxels, one program replay that writes it into the map's
+            # buffers.  The dropped count stays on the device.
             with self.timers.stage("evict"):
-                self.voxel_map, self._evict_dropped = vm.compact_map(
-                    self.voxel_map, self.state.p,
+                self.voxel_map, self._evict_dropped = vm.compact_map_program(
+                    self.programs, self.voxel_map, self.state.p,
                     distance=self.cfg.odometry_options.max_distance,
                     max_probe=self.cfg.shapes.map_max_probe)
                 self.timers.synchronize()

@@ -53,7 +53,12 @@ keeps one, eagerly the host picks.  A program therefore reads nothing
 back to the host, and an eager run does no dead work.
 
 `outputs` are the graph's own tensors, which the next replay overwrites:
-a caller clones what it keeps.
+a caller clones what it keeps.  A pure function is a program with state
+None: what it allocates (a scratch table, a temporary map) lives in the
+graph's private memory pool, which the program holds, and is made anew
+in the graph on each replay.  `call` keeps a caller's programs in a dict
+by key and replays one `repeat` times back to back (an iteration
+program).
 
 Launch counters: a kernel wrapper adds one to a host dict where it
 launches (`plane_fit.launches`), and a replay runs no Python.  So the
@@ -328,6 +333,29 @@ class Program:
         self.nodes = graph_nodes(graph)
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
+
+
+def call(programs: Dict[Any, Program], key, fn: Callable, state, inputs,
+         name: str = "", repeat: int = 1):
+    """Calls the program `programs[key]` over `fn` `repeat` times back to
+    back, with no host read between the calls (a Gauss-Newton iteration
+    replayed `iters` times), and returns its (state, outputs) after the
+    last.  The first use of `key` makes the program: `state` is adopted
+    (its buffers are the caller's, updated in place; None for a pure
+    function) and `inputs` are copied, since refills write into them.
+    Later uses refill both first.  `key` must name everything `fn` holds
+    besides its arguments: the program keeps the first `fn`."""
+    prog = programs.get(key)
+    if prog is None:
+        prog = programs[key] = Program(fn, state, tree_map(torch.clone,
+                                                           inputs), name)
+    else:
+        refill(prog.state, state)
+        refill(prog.inputs, inputs)
+    outputs = None
+    for _ in range(repeat):
+        outputs = prog()
+    return prog.state, outputs
 
 
 def _end_failed_capture(graph: "torch.cuda.CUDAGraph") -> None:

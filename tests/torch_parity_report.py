@@ -8,7 +8,9 @@ Runs on the CPU (the port's plain path) in about eight minutes; the tests
 hold the bounds, this script reports the measured values for PERF.md.
 Sections (all by default): lie, eskf, frame, voxel_map, host, plane,
 knn_plane, lio, odometry, pipeline, image, ransac, color_map, camera,
-vision, long_run, ingest, retry, sharded (the multi-device slice: 4 gloo
+vision, long_run, backend_programs (the long-run path's captured
+programs against their eager functions and JAX), ingest, retry, sharded
+(the multi-device slice: 4 gloo
 ranks against JAX's 4-device mesh, about a minute), gate (the accuracy
 gate's bags and configurations against scripts/accuracy_gate.py and an
 8 s ntu-profile bag through both packages, about a minute), scaling (the
@@ -27,6 +29,7 @@ from sr_livo_tpu_torch import convert
 from tests import test_torch_accuracy_gate as AG
 from tests import test_torch_ba as BA
 from tests import test_torch_backend as BE
+from tests import test_torch_backend_programs as BP
 from tests import test_torch_camera as C
 from tests import test_torch_checkpoint as CK
 from tests import test_torch_color_map as CM
@@ -889,6 +892,104 @@ def long_run_rows():
         [(resumed.trajectory()[1], base.trajectory()[1])])
 
 
+def backend_programs_rows():
+    """The long-run path's captured programs (test_torch_backend_programs)
+    in capture form: each against its eager function and against the
+    JAX function."""
+    import jax
+    from sr_livo_tpu.ops import voxel_map as jvm
+    from sr_livo_tpu.parallel import ba as jba
+    from sr_livo_tpu.parallel import loop_closure as jlc
+    from sr_livo_tpu.parallel import pose_graph as jpg
+    from sr_livo_tpu_torch.ops import voxel_map as tvm
+    from sr_livo_tpu_torch.parallel import ba as tba
+    from sr_livo_tpu_torch.parallel import loop_closure as tlc
+    from sr_livo_tpu_torch.parallel import pose_graph as tpg
+    from sr_livo_tpu_torch.utils import graphs
+
+    def flat(tree):
+        return [t.numpy() for t in graphs.tree_leaves(tree)]
+
+    for solver, n in BP.SOLVER_NODES.items():
+        g = BP._chain_graph(n=n, drift=0.03,
+                            rng=np.random.RandomState(23))[0]
+        tg = convert.pose_graph_from_numpy(g)
+        with graphs.capture_form():
+            got = tpg.optimize_pose_graph_program({}, tg, iters=4)
+        name = f"pose_graph program, {solver} ({n} nodes, 4 iterations; q, t)"
+        row(f"{name} vs eager", list(zip(flat(got), flat(
+            tpg.optimize_pose_graph(tg, iters=4)))))
+        row(f"{name} vs JAX", list(zip(flat(got), jpg.optimize_pose_graph(
+            g, iters=4))))
+
+    world, jmap = BP._world_and_map(np.random.RandomState(17))
+    tmap = convert.voxel_map_from_numpy(jmap)
+    window, q_odo, t_odo, _, _ = BP._window(world, np.random.RandomState(3),
+                                            n_valid=[256, 180, 97, 230])
+    args = (convert.keyframe_window_from_numpy(window),
+            torch.as_tensor(q_odo), torch.as_tensor(t_odo))
+    kw = dict(voxel_size=1.0, min_neighbors=8, iters=2)
+    with graphs.capture_form():
+        got = tba.windowed_ba_program({}, tmap, *args, **kw)
+    name = "windowed_ba program (4 x 256 rows, padded, 2 iterations; q, t)"
+    row(f"{name} vs eager", list(zip(flat(got), flat(
+        tba.windowed_ba(tmap, *args, **kw)))))
+    row(f"{name} vs JAX", list(zip(flat(got), jba.windowed_ba(
+        jmap, jba.KeyframeWindow(**{k: jnp.asarray(v)
+                                    for k, v in window.items()}),
+        jnp.asarray(q_odo), jnp.asarray(t_odo), **kw))))
+
+    args = BP._scene("revisit")
+    targs = [torch.as_tensor(np.array(a)) for a in args]
+    with graphs.capture_form():
+        got = tlc.verify_closure_program({}, *targs)
+    with jax.disable_jit():
+        rj = jlc.verify_closure(*(jnp.asarray(a) for a in args))
+    name = "verify_closure program (revisit; all fields)"
+    row(f"{name} vs eager", list(zip(flat(got), flat(
+        tlc.verify_closure(*targs)))))
+    row(f"{name} vs JAX op by op", list(zip(flat(got), rj)))
+
+    jm = BP.jax_map.__wrapped__()
+    loc = np.array([2.0, -1.0, 0.3], np.float32)
+    for dist, probe in ((6.0, 16), (100.0, 2)):
+        tm = convert.voxel_map_from_numpy(jm)
+        eager = tvm.compact_map(tm, torch.as_tensor(loc), distance=dist,
+                                max_probe=probe)
+        with graphs.capture_form():
+            got = tvm.compact_map_program({}, tm, torch.as_tensor(loc),
+                                          distance=dist, max_probe=probe)
+        jmap2, jdrop = jvm.compact_map_impl(jm, jnp.asarray(loc),
+                                            distance=dist, max_probe=probe)
+        name = (f"compact_map program, {dist} m, max_probe {probe} (all map "
+                "fields, n_dropped)")
+        row(f"{name} vs eager", list(zip(flat(got), flat(eager))))
+        row(f"{name} vs JAX", state_pairs(got[0], jmap2)
+            + [(got[1].numpy(), jdrop)])
+
+    rng = np.random.RandomState(6)
+    world = rng.uniform(-6, 6, (16 * 256, 3)).astype(np.float32)
+    valid = rng.rand(16 * 256) < 0.9
+    targs = (torch.as_tensor(world), torch.as_tensor(valid), 0.5, 0.05, 16)
+    with graphs.capture_form():
+        got = tvm.insert_program({}, tvm.make_map(1 << 12, 20), *targs)
+    eager = tvm.insert(tvm.make_map(1 << 12, 20), *targs)
+    jgot, jacc = jvm.insert(jvm.make_map(1 << 12, 20), jnp.asarray(world),
+                            jnp.asarray(valid), 0.5, 0.05, 16)
+    name = "insert program, the rebuild's group (16 x 256 rows; map, accepted)"
+    row(f"{name} vs eager", list(zip(flat(got), flat(eager))))
+    row(f"{name} vs JAX", state_pairs(got[0], jgot)
+        + [(got[1].numpy(), jacc)])
+
+    (b0, p0), (b1, p1) = BP.backend_pair.__wrapped__()
+    row(f"MappingBackend in capture form vs plain (synthetic revisit: "
+        f"{len(b0.keyframes)} keyframes, {b0.n_loop_closures} closures, "
+        f"{b0.ba_runs} BA runs; optimized t, rebuilt map)",
+        [(a, b) for a, b in zip(b1.optimized_trajectory()[1:],
+                                b0.optimized_trajectory()[1:])]
+        + list(zip(flat(p1.voxel_map), flat(p0.voxel_map))))
+
+
 def sharded_rows():
     rng = np.random.RandomState(3)
     h = rng.randint(-2 ** 31, 2 ** 31 - 1, 4000, dtype=np.int64
@@ -1026,7 +1127,8 @@ def _leaves(d):
 SECTIONS = (lie_rows, eskf_rows, frame_rows, voxel_map_rows, host_rows,
             plane_rows, knn_plane_rows, lio_rows, odometry_rows,
             pipeline_rows, image_rows, ransac_rows, color_map_rows,
-            camera_rows, vision_rows, long_run_rows, ingest_rows,
+            camera_rows, vision_rows, long_run_rows, backend_programs_rows,
+            ingest_rows,
             retry_rows, sharded_rows, gate_rows, scaling_rows)
 
 
