@@ -123,9 +123,10 @@ Phases, each printing one JSON line:
      check, the pose-graph solves' Gauss-Newton iteration, `compact_map`
      and the map rebuild's insert) on the slice's simulation with the
      mapping backend (feedback and rebuild on) and eviction every 20
-     frames: the first and every 10th call of each checked as in (a),
-     the pose-graph iterations (float atomics) within the spread of 5
-     eager runs.  The launch counts hold as the code calls for (a replay
+     frames: the first and every 10th call of each checked as in (a)
+     (the pose-graph and sharded-BA sums are ordered,
+     `graphs.scatter_sum`, so their replays too give the eager bits).
+     The launch counts hold as the code calls for (a replay
      adds what its capture launched: a masked round launches its kernel
      too), and the LIVO run passes the vision bars;
   8. longrun — the same run with the long-run parts on: the mapping
@@ -282,7 +283,10 @@ CAPTURED = {
     "knn_plane_assoc": "captured: inside the LIO step program, one node "
                        "per IEKF update; inside the windowed-BA program, "
                        "one per Gauss-Newton iteration; inside the "
-                       "loop-check program, 9",
+                       "loop-check program, 9; inside the sharded step "
+                       "program (NCCL or a world of one), one per IEKF "
+                       "update; inside the sharded BA program, one per "
+                       "iteration; eager over gloo",
     "plane_assoc": "off the main path", "plane_rows": "off the main path"}
 # How each data-dependent loop of the JAX programs runs in the port's
 # captured programs (utils/graphs.py): this PyTorch build exposes no CUDA
@@ -303,7 +307,13 @@ LOOP_ROUTES = {
         "one iteration's program replayed iters times",
     "parallel/pose_graph.py CG fori_loop": "unrolled, cg_iters steps",
     "parallel/ba.py::windowed_ba fori_loop": "unrolled, iters",
-    "parallel/loop_closure.py::verify_closure fori_loop": "unrolled, iters"}
+    "parallel/loop_closure.py::verify_closure fori_loop": "unrolled, iters",
+    "parallel/sharded_lio.py::_iekf while_loop":
+        "masked rounds, max_iters + 1, each round's two psums called",
+    "parallel/sharded_lio.py::_sweep_core retry": "both branches, select "
+                                                  "(graphs.cond)",
+    "parallel/ba.py::make_sharded_windowed_ba fori_loop":
+        "unrolled, iters, one graph with its psums"}
 
 
 def emit(obj) -> None:
@@ -555,8 +565,8 @@ class Capture:
 
     # entry -> the name prefixes of the main path's captured programs that
     # call it
-    IN_PROGRAMS = {"knn_plane_rows": ("lio_step",),
-                   "knn_plane_assoc": ("lio_step",)}
+    IN_PROGRAMS = {"knn_plane_rows": ("lio_step", "sharded_lio_step"),
+                   "knn_plane_assoc": ("lio_step", "sharded_lio_step")}
 
     def __init__(self, name: str, want=None, programs=None):
         self.name, self.args = name, None
@@ -1267,23 +1277,13 @@ def compare_leaves(graphs, replayed, eager) -> dict:
     return out
 
 
-# Programs that hold float atomics (`index_add_` on CUDA floats: the
-# pose-graph solves), whose eager runs part from each other: a checked
-# replay is held to the spread of ATOMIC_RUNS eager runs on its inputs.
-ATOMIC_PROGRAMS = ("pose_graph",)
-ATOMIC_RUNS = 5
-
-
 class ProgramCheck:
     """Within the block, the first and every `every`-th call after it of
     each captured program whose name starts with `prefix` (a string or a
     tuple of them) is checked: its buffers are cloned, the graph
     replayed, then the program's function run eagerly on the clones and
     its state written back into them (the counters it advances set
-    back); the outputs and the state must be the same bits.  A program
-    with float atomics (`ATOMIC_PROGRAMS`) runs eagerly ATOMIC_RUNS times:
-    its integers must be the same bits and its floats lie within the
-    spread of those runs of one of them (`spread`, `nearest`)."""
+    back); the outputs and the state must be the same bits."""
 
     def __init__(self, prefix, every: int = 10):
         self.prefix, self.every = prefix, every
@@ -1306,21 +1306,12 @@ class ProgramCheck:
             out = self.orig_call(prog)
             replayed = (graphs.tree_map(torch.clone, prog.state),
                         graphs.tree_map(torch.clone, out))
-            runs = (ATOMIC_RUNS if prog.name.startswith(ATOMIC_PROGRAMS)
-                    else 1)
-            eager = []
             with graphs.counts_kept():
-                for _ in range(runs):
-                    st = graphs.tree_map(torch.clone, state)
-                    new_state, eager_out = prog.fn(
-                        st, graphs.tree_map(torch.clone, inputs))
-                    graphs.refill(st, new_state)
-                    eager.append((st, eager_out))
-            rec = {"program": prog.name, "call": k,
-                   **compare_leaves(graphs, replayed, eager[0])}
-            if runs > 1:
-                rec.update(atomic_check(graphs, replayed, eager))
-            self.checks.append(rec)
+                new_state, eager_out = prog.fn(state, inputs)
+                graphs.refill(state, new_state)
+            self.checks.append({"program": prog.name, "call": k,
+                                **compare_leaves(graphs, replayed,
+                                                 (state, eager_out))})
             return out
         graphs.Program.__call__ = call
         return self
@@ -1330,32 +1321,14 @@ class ProgramCheck:
 
     def summary(self) -> dict:
         c = self.checks
-        bad = [x for x in c if x["int_differ"]
-               or (x["float_differ"] and not x.get("within_spread"))]
+        bad = [x for x in c if x["int_differ"] or x["float_differ"]]
         return {"calls": self.calls, "checked": len(c),
                 "programs_checked": sorted({x["program"] for x in c}),
                 "int_differ": sum(x["int_differ"] for x in c),
                 "float_differ": sum(x["float_differ"] for x in c),
                 "float_max_abs": max((x["float_max_abs"] for x in c),
                                      default=0.0),
-                "atomic_spread": max((x["spread"] for x in c
-                                      if "spread" in x), default=None),
                 "failing": len(bad), "differing": bad[:5]}
-
-
-def atomic_check(graphs, replayed, eager) -> dict:
-    """A replay against several eager runs of a program with float
-    atomics: the largest difference between two eager runs (`spread`),
-    the replay's difference from the nearest run (`nearest`), and whether
-    that is within the spread, the integers equal to the first run's."""
-    def dist(a, b):
-        return max((_max_abs(x.double(), y.double()) for x, y in zip(
-            graphs.tree_leaves(a), graphs.tree_leaves(b))
-            if x.is_floating_point() and x.numel()), default=0.0)
-    spread = max(dist(a, b) for a in eager for b in eager)
-    nearest = min(dist(replayed, e) for e in eager)
-    return {"spread": spread, "nearest": nearest,
-            "within_spread": nearest <= spread}
 
 
 class ReplayTimes:
@@ -1659,8 +1632,7 @@ def long_run_programs_check(sim) -> dict:
     rebuild on, BackendConfig's defaults otherwise) and eviction every
     20 frames, then the final pose-graph solve: the first and every 10th
     call of each long-run program checked against its eager function
-    (`ProgramCheck`; the pose-graph solves within the spread of their
-    eager runs)."""
+    (`ProgramCheck`)."""
     from sr_livo_tpu_torch.parallel.backend import (BackendConfig,
                                                     MappingBackend)
     cfg = bench_lio_cfg(cache_association=True)
@@ -1793,8 +1765,10 @@ def program_args(prog, want) -> "Capture":
     return cap
 
 
-def steady_calls(programs: dict, solve_iters: int = 10) -> dict:
-    """Per long-run program (the one of each kind with the most replays):
+def steady_calls(programs: dict, kinds=LONG_RUN_PROGRAMS,
+                 solve_iters: int = 10) -> dict:
+    """Per program of `kinds` (name prefixes; the long-run programs by
+    default), the one of each kind with the most replays:
     host launches of one steady call (its inputs refilled from device
     copies of its last ones, then `solve_iters` replays for a pose-graph
     iteration, one otherwise) and of its function run eagerly on the same
@@ -1802,10 +1776,11 @@ def steady_calls(programs: dict, solve_iters: int = 10) -> dict:
     device ms of 5 steady calls (CUDA events around each), and what a
     steady call raised under `set_sync_debug_mode("error")` ("" if
     nothing).  The calls run on the run's final state: an eviction's
-    compacts the pipeline's map again, a rebuild group's inserts again."""
+    compacts the pipeline's map again, a rebuild group's inserts again, a
+    step's inserts its sweep again."""
     graphs = _programs()
     out = {}
-    for kind in LONG_RUN_PROGRAMS:
+    for kind in kinds:
         mine = [p for p in programs.values() if p.name.startswith(kind)]
         if not mine:
             continue
@@ -2536,50 +2511,57 @@ def record_single_run(sim, cfg: LivoConfig) -> tuple:
     return pipe, log
 
 
-def run_sharded(eng, log, capture_at=None, keep=()) -> dict:
-    """`eng.step` over the logged sweeps from the logged first state, with
+def run_sharded(eng, log, keep=(), check=None) -> dict:
+    """`eng.step` over the logged sweeps from a copy of the logged first
+    state (a capturable mesh's step program adopts and updates it), with
     the launch counters set to 0 just before and read just after; the
-    `knn_plane_assoc` call of step `capture_at` is captured and the
-    registered frames of the steps in `keep` are kept."""
-    state, vmap = log["first_state"], eng.make_map()
-    recs, overflow, seconds, kept = [], [], [], {}
+    registered frames of the steps in `keep` are kept (copies: the
+    outputs are the program's).  With `check` (a ProgramCheck around the
+    run), the steps it checked are marked in `checked`."""
+    state = eskf_mod.map_state(torch.clone, log["first_state"])
+    vmap = eng.make_map()
+    recs, overflow, seconds, kept, checked = [], [], [], {}, []
     digest = hashlib.sha1()
-    cap = Capture("knn_plane_assoc")
     plane_fit.reset_launches()
-    with cuda_knn_calls() as knn_calls, \
-            Spy((sharded_lio.ShardedLioEngine, "_iekf", "updates")) as upd:
+    updates0 = lio.counts["updates"]
+    with cuda_knn_calls() as knn_calls:
         for i, (sweep, fid, gyr) in enumerate(zip(
                 log["sweeps"], log["frame_ids"], log["gyr"])):
+            n_checks = len(check.checks) if check is not None else 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if i == capture_at:
-                with cap:
-                    out = eng.step(state, vmap, sweep, fid, gyr)
-            else:
-                out = eng.step(state, vmap, sweep, fid, gyr)
+            out = eng.step(state, vmap, sweep, fid, gyr)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
+            checked.append(check is not None
+                           and len(check.checks) > n_checks)
             state, vmap = out.state, out.voxel_map
-            recs.append(out.record)
-            overflow.append(out.route_overflow)
+            recs.append(out.record.clone())
+            overflow.append(out.route_overflow.clone())
             for t in (out.frame_pts_world, out.frame_valid, out.inserted):
                 digest.update(t.cpu().numpy().tobytes())
             if i in keep:
-                kept[i] = (out.frame_pts_world, out.frame_valid,
-                           out.state.q, out.state.p)
+                kept[i] = tuple(t.clone() for t in (
+                    out.frame_pts_world, out.frame_valid, out.state.q,
+                    out.state.p))
     return {"records": torch.stack(recs).cpu().numpy(),
             "overflow": torch.stack(overflow).cpu().numpy(),
-            "seconds": np.array(seconds), "state": state, "map": vmap,
+            "seconds": np.array(seconds), "checked": np.array(checked),
+            "state": state, "map": vmap,
             "map_size": int(eng.map_size(vmap)),
             "launches": dict(plane_fit.launches),
             "plain_knn_calls_on_cuda": knn_calls.n,
-            "iekf_updates": upd.calls.get("updates", 0),
-            "frames_digest": digest.hexdigest(), "kept": kept,
-            "capture": cap.args}
+            "iekf_updates": lio.counts["updates"] - updates0,
+            "frames_digest": digest.hexdigest(), "kept": kept}
 
 
-def sweeps_per_s(seconds, n_warm: int) -> float:
-    return (len(seconds) - n_warm) / float(np.sum(seconds[n_warm:]))
+def sweeps_per_s(seconds, n_warm: int, checked=None) -> float:
+    """Sweeps a second after the first `n_warm`, leaving out the steps a
+    ProgramCheck checked (an eager run beside the replay)."""
+    seconds = np.asarray(seconds)[n_warm:]
+    if checked is not None:
+        seconds = seconds[~np.asarray(checked)[n_warm:]]
+    return len(seconds) / float(np.sum(seconds))
 
 
 def check_sharded(name: str, run: dict, ref: np.ndarray,
@@ -2653,60 +2635,102 @@ def ba_window(kept: dict):
     return window, torch.stack(q_odo), torch.stack(t_odo)
 
 
+# The world of one's programs (`ShardedLioEngine.programs`), checked
+# against their eager functions in (a).
+SHARDED_PROGRAMS = ("sharded_lio_step", "sharded_map_size", "sharded_compact",
+                    "sharded_windowed_ba")
+
+
 def world_of_one(log, cfg, ref, single_map, single_p, n_warm,
                  workdir) -> tuple:
     """(a) The sharded engine as a world of one over NCCL (so the
-    collectives really run through NCCL), then `compact` and one sharded
-    windowed-BA solve on its final map."""
+    collectives really run through NCCL, inside the programs' graphs): the
+    step program over the run, one sharded windowed-BA solve and
+    `compact` on its final map, `map_size`, the first and every 10th call
+    of each program checked against its eager function (`ProgramCheck`;
+    the BA's ordered sums giving the eager bits too), then a
+    steady step's host launches, device ms and synchronizations.  Returns
+    (record, run, and the Captures of `knn_plane_assoc`'s arguments inside
+    the steady step program and inside the BA program)."""
     dist.init_process_group(
         "nccl", store=dist.FileStore(os.path.join(workdir, "store1"), 1),
         rank=0, world_size=1)
+    eng = None
     try:
         mesh = pmesh.make_mesh(device="cuda")
+        if not mesh.capturable:
+            raise AssertionError(f"{mesh} is not capturable")
         eng = sharded_lio.ShardedLioEngine(cfg, mesh)
         n = len(log["sweeps"])
         keep = range(n - 1 - (BA_KEYFRAMES - 1) * BA_STRIDE, n, BA_STRIDE)
-        run = run_sharded(eng, log, keep=set(keep))
-        out = check_sharded("world of one", run, ref,
-                            int(vm.map_size(single_map)))
-        out.update(backend=dist.get_backend(), ranks=1,
-                   sweeps_per_s=sweeps_per_s(run["seconds"], n_warm))
-        # compact at max_distance from the single-device final position
-        m2, dropped = eng.compact(run["map"], single_p)
-        single_compact = int(vm.map_size(vm.compact_map(
-            single_map, single_p,
-            distance=cfg.odometry_options.max_distance,
-            max_probe=cfg.shapes.map_max_probe)[0]))
-        out["compact"] = {"dropped": int(dropped),
-                          "map_size": int(eng.map_size(m2)),
-                          "single_map_size": single_compact}
-        del m2
-        if out["compact"]["dropped"] or (out["compact"]["map_size"]
-                                         != single_compact):
-            raise AssertionError(f"sharded compact: {out['compact']}")
-        # one sharded windowed-BA solve on the final map
-        window, q_odo, t_odo = ba_window(run["kept"])
-        fn = pba.make_sharded_windowed_ba(
-            mesh, BA_KEYFRAMES, voxel_size=cfg.icp.size_voxel_map,
-            max_probe=cfg.shapes.map_max_probe, iters=BA_ITERS,
-            block_bits=cfg.shapes.map_block_bits)
-        plane_fit.reset_launches()
-        cap = Capture("knn_plane_assoc")
-        with cap:
-            q_ba, t_ba, ovf = fn(run["map"], window, q_odo, t_odo)
-        torch.cuda.synchronize()
-        ba = {"keyframes": BA_KEYFRAMES, "points": BA_POINTS,
-              "iters": BA_ITERS, "route_overflow": int(ovf),
-              "launches": plane_fit.launches["knn_plane_assoc"],
-              "max_shift_m": float((t_ba - window.t).norm(dim=-1).max()),
-              "finite": bool(torch.isfinite(q_ba).all()
-                             and torch.isfinite(t_ba).all())}
-        out["ba"] = ba
-        if ba["route_overflow"] or not ba["finite"] or (
-                ba["launches"] != BA_ITERS):
-            raise AssertionError(f"sharded BA: {ba}")
-        return out, run, cap
+        with ProgramCheck(SHARDED_PROGRAMS) as chk:
+            run = run_sharded(eng, log, keep=set(keep), check=chk)
+            out = check_sharded("world of one", run, ref,
+                                int(vm.map_size(single_map)))
+            out.update(backend=dist.get_backend(), ranks=1,
+                       sweeps_per_s=sweeps_per_s(run["seconds"], n_warm,
+                                                 run["checked"]))
+            # one sharded windowed-BA solve on the final map
+            window, q_odo, t_odo = ba_window(run["kept"])
+            plane_fit.reset_launches()
+            q_ba, t_ba, ovf = pba.sharded_windowed_ba_program(
+                eng.programs, mesh, run["map"], window, q_odo, t_odo,
+                voxel_size=cfg.icp.size_voxel_map,
+                max_probe=cfg.shapes.map_max_probe, iters=BA_ITERS,
+                block_bits=cfg.shapes.map_block_bits)
+            torch.cuda.synchronize()
+            ba = {"keyframes": BA_KEYFRAMES, "points": BA_POINTS,
+                  "iters": BA_ITERS, "route_overflow": int(ovf),
+                  "launches": plane_fit.launches["knn_plane_assoc"],
+                  "max_shift_m": float((t_ba - window.t).norm(dim=-1).max()),
+                  "finite": bool(torch.isfinite(q_ba).all()
+                                 and torch.isfinite(t_ba).all())}
+            out["ba"] = ba
+            if ba["route_overflow"] or not ba["finite"] or (
+                    ba["launches"] != BA_ITERS):
+                raise AssertionError(f"sharded BA: {ba}")
+            # compact, in place, at max_distance from the single-device
+            # final position
+            m2, dropped = eng.compact(run["map"], single_p)
+            single_compact = int(vm.map_size(vm.compact_map(
+                single_map, single_p,
+                distance=cfg.odometry_options.max_distance,
+                max_probe=cfg.shapes.map_max_probe)[0]))
+            out["compact"] = {"dropped": int(dropped),
+                              "map_size": int(eng.map_size(m2)),
+                              "single_map_size": single_compact,
+                              "in_place": _programs().same_leaves(
+                                  m2, run["map"])}
+            if out["compact"]["dropped"] or (out["compact"]["map_size"]
+                                             != single_compact) or not (
+                    out["compact"]["in_place"]):
+                raise AssertionError(f"sharded compact: {out['compact']}")
+        out["checks"] = chk.summary()
+        progs = {p.name: p for p in eng.programs.values()}
+        missing = [k for k in SHARDED_PROGRAMS
+                   if k not in {x.split("[")[0] for x in progs}]
+        if (missing or out["checks"]["failing"]
+                or sorted({x.split("[")[0] for x in
+                           out["checks"]["programs_checked"]})
+                != sorted(SHARDED_PROGRAMS)):
+            raise AssertionError(f"sharded programs: missing {missing}, "
+                                 f"checks {out['checks']}")
+        steady = progs["sharded_lio_step[steady]"]
+        out["steady_call"] = sc = steady_calls(
+            {0: steady}, kinds=("sharded_lio_step",))[steady.name]
+        out["programs"] = program_record(None, eng)
+        if sc["sync_error"] or not (
+                10 * sc["host_launches"] <= sc["eager_host_launches"]):
+            raise AssertionError(f"sharded steady step: {sc}")
+        ba_prog = next(p for p in progs.values()
+                       if p.name.startswith("sharded_windowed_ba"))
+        # the kernel's arguments inside the programs, while the group
+        # lives (their functions call its collectives)
+        return (out, run, program_args(steady, lambda a, k: True),
+                program_args(ba_prog, lambda a, k: True))
     finally:
+        if eng is not None:
+            eng.programs.clear()       # their graphs hold NCCL calls
         dist.destroy_process_group()
 
 
@@ -2739,12 +2763,11 @@ def sharded_rank_main(rank: int, workdir: str) -> int:
                "frame_ids": inp["frame_ids"], "gyr": inp["gyr"]}
         eng = sharded_lio.ShardedLioEngine(inp["cfg"],
                                            pmesh.make_mesh(device=device))
-        run = run_sharded(eng, log,
-                          capture_at=inp["n_warm"] if rank == 0 else None)
+        run = run_sharded(eng, log)
         keys = ("records", "overflow", "seconds", "map_size", "launches",
-                "plain_knn_calls_on_cuda", "iekf_updates", "frames_digest",
-                "capture")
+                "plain_knn_calls_on_cuda", "iekf_updates", "frames_digest")
         res = {k: run[k] for k in keys}
+        res["programs"] = len(eng.programs)      # gloo: none, eager
         res["state"] = {k: v.cpu() for k, v in run["state"]._asdict().items()}
         res["backend"] = dist.get_backend()
         torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
@@ -2754,10 +2777,11 @@ def sharded_rank_main(rank: int, workdir: str) -> int:
 
 
 def two_ranks(log, cfg, ref, single_size: int, n_warm: int,
-              workdir: str) -> tuple:
+              workdir: str) -> dict:
     """(b) Two ranks on one card over gloo, in two processes of this
     script: every rank's replicated outputs the same bits, and the run
-    against the single-device one as in (a)."""
+    against the single-device one as in (a).  Gloo is not capturable:
+    each rank runs the step eagerly and builds no program."""
     save_log(log, cfg, os.path.join(workdir, "sweeps.pt"), n_warm)
     cmd = [sys.executable, os.path.abspath(__file__), "--sharded-dir",
            workdir, "--sharded-rank"]
@@ -2799,10 +2823,14 @@ def two_ranks(log, cfg, ref, single_size: int, n_warm: int,
                launches_per_rank=[r["launches"]["knn_plane_assoc"]
                                   for r in ranks],
                iekf_updates_per_rank=[r["iekf_updates"] for r in ranks],
+               programs_per_rank=[r["programs"] for r in ranks],
                sweeps_per_s=sweeps_per_s(first["seconds"], n_warm))
     if not identical:
         raise AssertionError("the ranks' replicated outputs differ")
-    return out, first["capture"]
+    if any(out["programs_per_rank"]):
+        raise AssertionError(f"gloo ranks built programs: "
+                             f"{out['programs_per_rank']}")
+    return out
 
 
 def assoc_shape(name: str, cap: "Capture", min_neighbors: int,
@@ -2829,10 +2857,12 @@ def assoc_shape(name: str, cap: "Capture", min_neighbors: int,
 def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
     """The map-sharded engine at bench.py's LIO shapes on the slice's run:
     (a) a world of one over NCCL against the single-device engine on the
-    same sweeps, with `compact` and a sharded BA solve; (b) two ranks on
-    the one card over gloo; (c) the kernel against its plain version at
-    the two shard shapes (the IEKF's K4 x 20 on a rank's local table,
-    captured in (b); the BA's W x 20, captured in (a))."""
+    same sweeps, its step, BA, `compact` and `map_size` as captured
+    programs checked against their eager functions; (b) two ranks on the
+    one card over gloo, eager; (c) the kernel against its plain version
+    at the two shard shapes, with the arguments taken inside (a)'s
+    programs (the IEKF's K4 x 20 in the steady step program, the BA's
+    W x 20 in the BA program)."""
     import tempfile
 
     pipe, log = record_single_run(sim, cfg)
@@ -2843,7 +2873,7 @@ def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
         for r in pipe.records])
     single_rate = sweeps_per_s(np.array(log["seconds"]), n_warm)
     with tempfile.TemporaryDirectory() as d:
-        a, run, ba_cap = world_of_one(
+        a, run, k4_cap, ba_cap = world_of_one(
             log, cfg, ref, pipe.voxel_map, pipe.state.p, n_warm, d)
         a["single_sweeps_per_s"] = single_rate
         a["ate_m"] = tum.ate_rmse(ts, run["records"][:, 0:3], sim.gt_times,
@@ -2852,13 +2882,11 @@ def sharded_phase(sim, cfg: LivoConfig, n_warm: int = 60) -> dict:
         if not a["ate_m"] < 0.05:
             raise AssertionError(f"sharded ATE RMSE {a['ate_m']} m")
         del run
-        b, k4_args = two_ranks(log, cfg, ref,
-                               int(vm.map_size(pipe.voxel_map)), n_warm, d)
+        b = two_ranks(log, cfg, ref, int(vm.map_size(pipe.voxel_map)),
+                      n_warm, d)
         b["single_sweeps_per_s"] = single_rate
         emit({"phase": "sharded", "part": "b", **b})
     del pipe, log
-    k4_cap = Capture("knn_plane_assoc")
-    k4_cap.args = k4_args
     if k4_cap.args is None or ba_cap.args is None:
         raise AssertionError("no shard-shape association was captured")
     shapes = {"k4": assoc_shape("iekf_k4", k4_cap,
@@ -2964,10 +2992,18 @@ def scaling_checks(rec: dict, launched: dict) -> list:
     if parent != launched:
         fails.append(f"the run launched {launched}, its engines {parent}")
     counted = dict(rec["comm_model"]["collectives_counted_strong8_steady"])
-    counted.pop("iekf_iterations")
+    rounds = counted.pop("psum_rounds")
+    iters = counted.pop("iekf_iterations")
     if counted != rec["comm_model"]["collectives_modeled"]:
         fails.append(f"collectives counted {counted}, modeled "
                      f"{rec['comm_model']['collectives_modeled']}")
+    if not (rounds == scaling_bench.base_cfg().icp.num_iters_icp + 1
+            and 1 <= iters <= rounds):
+        fails.append(f"{rounds} psum rounds for {iters} IEKF iterations")
+    unbuilt = [k for k, v in rec["programs_built"].items()
+               if not v or not all(p["nodes"] and p["replays"] for p in v)]
+    if unbuilt:
+        fails.append(f"no program built by {unbuilt}")
     return fails
 
 
@@ -2988,6 +3024,8 @@ def scaling_phase() -> dict:
             return fn()
 
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     plane_fit.reset_launches()
     updates0 = lio.counts["updates"]
     with cuda_knn_calls() as knn_calls:
@@ -2995,11 +3033,13 @@ def scaling_phase() -> dict:
     launched = dict(plane_fit.launches,
                     iekf_updates=lio.counts["updates"] - updates0)
     seconds = time.perf_counter() - t0
+    memory = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
     os.makedirs(os.path.dirname(scaling_bench.DEFAULT_OUT), exist_ok=True)
     with open(scaling_bench.DEFAULT_OUT, "w") as f:
         json.dump(rec, f, indent=2)
     emit({"phase": "scaling", "seconds": seconds, "launched": launched,
-          "plain_knn_calls_on_cuda": knn_calls.n, **rec})
+          "plain_knn_calls_on_cuda": knn_calls.n, "memory": memory, **rec})
     fails = scaling_checks(rec, launched)
     if knn_calls.n:
         fails.append(f"plain kNN called {knn_calls.n} times on the card")
@@ -3027,7 +3067,8 @@ def scaling_phase() -> dict:
     caps.clear()
     torch.cuda.empty_cache()
     emit({"phase": "fused_vs_plain", "scaling": shapes})
-    return {"record": rec, "launched": launched, "shapes": shapes}
+    return {"record": rec, "launched": launched, "shapes": shapes,
+            "memory": memory}
 
 
 # ---------------------------------------------------------------------------
@@ -3240,7 +3281,9 @@ def main() -> int:
     summary[0]["launches_sharded"] = {
         "world_of_one_nccl": sharded["a"]["launches"]["knn_plane_assoc"],
         "two_ranks_gloo": sharded["b"]["launches_per_rank"],
-        "ba": sharded["a"]["ba"]["launches"]}
+        "ba": sharded["a"]["ba"]["launches"],
+        "programs": {p["name"]: p["replays"]
+                     for p in sharded["a"]["programs"]}}
     summary[0]["sharded_shapes"] = sharded["shapes"]
     summary[0]["launches_scaling"] = scaling["launched"]["knn_plane_assoc"]
     summary[0]["scaling_shapes"] = scaling["shapes"]

@@ -159,27 +159,19 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
     stays the prediction prior (the INIT_CONSTANT_VELOCITY predictor,
     lioOptimization.cpp:895-990).
 
-    The loop is the JAX package's `while_loop` (sr_livo_tpu/models/
-    lio.py:400) as masked rounds: a device flag "go on" gates each of the
-    `max_iters + 1` rounds, whose results are kept only where it holds;
-    the iteration count, the last round's residual count, the success
-    flag, the covariance and the restore of the starting state on a
-    rejected update (sr_livo_tpu/models/lio.py:404-406) stay on the
-    device.  `active` (a device bool) masks the whole update, as the
-    weak-solve retry's branch runs in capture form (`graphs.cond`): where
-    it is down no keypoint is searched and no round runs.
-    Returns (state, IekfSummary).
+    The loop is `iekf_iterations`: masked rounds, which read nothing back
+    to the host in capture form.  `active` (a device bool) masks the
+    whole update, as the weak-solve retry's branch runs in capture form
+    (`graphs.cond`): where it is down no keypoint is searched and no
+    round runs.  Returns (state, IekfSummary).
     """
     counts["updates"] += 1
     pred = state
     if seed_q is not None:
         state = state._replace(q=seed_q, p=seed_p)
     lam_w, lam_nb = _lam(weight_alpha, weight_neighborhood)
-    dev = keypts_raw.device
-    if active is None:
-        go = torch.ones((), dtype=torch.bool, device=dev)
-    else:
-        go, keypts_valid = active, keypts_valid & active
+    if active is not None:
+        keypts_valid = keypts_valid & active
     rows_kw = dict(lam_w=lam_w, lam_nb=lam_nb,
                    power_planarity=power_planarity,
                    max_dist=max_dist_to_plane,
@@ -213,36 +205,18 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
                 last_trans, keypts_valid & live, threshold_voxel_capacity,
                 **search_kw, **rows_kw)
 
-    x, cov_final = pack_state(state), pred.cov
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    ok = torch.ones((), dtype=torch.bool, device=dev)
-    n_res = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(max_iters + 1):
-        if not graphs.go_on(go):
-            break
-        counts["iterations"] += 1
-        s = unpack_state(x)
-        h_x, h, good = rows(s, go)
-        res = _cap_residuals(h_x, h, good, max_num_residuals)
+    def normal_equations(s, live):
+        res = _cap_residuals(*rows(s, live), max_num_residuals)
         hth, hth_h = normal_sums(res.h_x, res.h)
-        s_new, cf_new, flags = iekf_iteration(
-            s, pred, pred.cov, hth.to(res.h_x.dtype),
-            hth_h.to(res.h_x.dtype), res.num, cov_final,
-            min_number_neighbors=min_number_neighbors,
-            threshold_translation_norm=threshold_translation_norm,
-            threshold_orientation_norm=threshold_orientation_norm,
-            laser_point_cov=laser_point_cov,
-            check_convergence=check_convergence)
-        x = torch.where(go, pack_state(s_new), x)
-        cov_final = torch.where(go, cf_new, cov_final)
-        it = it + go.to(torch.int32)
-        ok = torch.where(go, flags[0], ok)
-        n_res = torch.where(go, res.num, n_res)
-        go = go & (it < max_iters + 1) & ~flags[1] & flags[0]
+        return hth.to(res.h_x.dtype), hth_h.to(res.h_x.dtype), res.num
 
-    s = unpack_state(x, state)._replace(cov=cov_final)
-    s = eskf_mod.map_state(lambda a, b: torch.where(ok, a, b), s, state)
-    return s, IekfSummary(success=ok, num_residuals=n_res, iterations=it)
+    return iekf_iterations(
+        state, pred, normal_equations, go=active,
+        min_number_neighbors=min_number_neighbors, max_iters=max_iters,
+        threshold_translation_norm=threshold_translation_norm,
+        threshold_orientation_norm=threshold_orientation_norm,
+        laser_point_cov=laser_point_cov,
+        check_convergence=check_convergence)
 
 
 def normal_sums(h_x: torch.Tensor, h: torch.Tensor):
@@ -320,43 +294,58 @@ def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
                     min_number_neighbors: int, max_iters: int,
                     threshold_translation_norm: float,
                     threshold_orientation_norm: float,
-                    laser_point_cov: float, check_convergence: bool = True):
+                    laser_point_cov: float, check_convergence: bool = True,
+                    go=None):
     """The iteration loop of updateIEKF (optimize.cpp:133-314) from the
-    starting iterate `state` against the prediction prior `pred`, run
-    eagerly: the sharded engine's form, whose `normal_equations` holds
-    collectives (the single-device engine runs `iekf_update`'s captured
-    iteration program).
+    starting iterate `state` against the prediction prior `pred`, the
+    loop of both engines.
 
-    `normal_equations(s)` gives the point-to-plane system at iterate `s`:
-    (H^T H (6, 6), H^T h (6,), residual count () int32) — psum'd over the
-    map mesh by the sharded engine.  Each iteration reads two flags back
-    to the host to decide whether to go on, so every value they come from
-    must be the same on every rank.  Returns (state, IekfSummary); on
-    failure the state is `state`."""
-    s, it = state, 0
-    cov_final = state.cov
-    while True:
-        hth, hth_h, num = normal_equations(s)
-        s, cov_final, flags = iekf_iteration(
-            s, pred, state.cov, hth, hth_h, num, cov_final,
+    `normal_equations(s, live)` gives the point-to-plane system at
+    iterate `s` in the state's type: (H^T H (6, 6), H^T h (6,), residual
+    count () int32); the sharded engine psums it over the map mesh.
+    `live` (a device bool) is down in a dead round, whose result is
+    dropped, so the function may skip its work there.
+
+    The JAX package's `while_loop` (sr_livo_tpu/models/lio.py:400) as
+    masked rounds: a device flag "go on" gates each of the `max_iters + 1`
+    rounds, whose results are kept only where it holds (`graphs.go_on`:
+    every round in capture form, the flag read back in an eager run, so
+    an eager loop stops where JAX's does).  The sharded engine's flag
+    comes from psum'd values, the same on every rank, so in either form
+    every rank calls `normal_equations`, and its collectives, the same
+    number of times.  The iteration count, the last round's residual
+    count, the success flag, the covariance and the restore of the
+    starting state on a rejected update (sr_livo_tpu/models/lio.py:
+    404-406) stay on the device.  `go` (a device bool) masks the whole
+    loop: where it is down no round runs.  Returns (state, IekfSummary).
+    """
+    dev = pred.cov.device
+    if go is None:
+        go = torch.ones((), dtype=torch.bool, device=dev)
+    x, cov_final = pack_state(state), pred.cov
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    n_res = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max_iters + 1):
+        if not graphs.go_on(go):
+            break
+        counts["iterations"] += 1
+        s = unpack_state(x)
+        hth, hth_h, num = normal_equations(s, go)
+        s_new, cf_new, flags = iekf_iteration(
+            s, pred, pred.cov, hth, hth_h, num, cov_final,
             min_number_neighbors=min_number_neighbors,
             threshold_translation_norm=threshold_translation_norm,
             threshold_orientation_norm=threshold_orientation_norm,
             laser_point_cov=laser_point_cov,
             check_convergence=check_convergence)
-        it += 1
-        counts["iterations"] += 1
-        n_res = num
-        ok, conv = flags.tolist()
-        if not (it < max_iters + 1 and not conv and ok):
-            break
+        x = torch.where(go, pack_state(s_new), x)
+        cov_final = torch.where(go, cf_new, cov_final)
+        it = it + go.to(torch.int32)
+        ok = torch.where(go, flags[0], ok)
+        n_res = torch.where(go, num, n_res)
+        go = go & (it < max_iters + 1) & ~flags[1] & flags[0]
 
-    if ok:
-        s = s._replace(cov=cov_final)
-    else:
-        s = state
-    summary = IekfSummary(
-        success=torch.tensor(ok, device=cov_final.device), num_residuals=n_res,
-        iterations=torch.tensor(it, dtype=torch.int32,
-                                device=cov_final.device))
-    return s, summary
+    s = unpack_state(x, state)._replace(cov=cov_final)
+    s = eskf_mod.map_state(lambda a, b: torch.where(ok, a, b), s, state)
+    return s, IekfSummary(success=ok, num_residuals=n_res, iterations=it)

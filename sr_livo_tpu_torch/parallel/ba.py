@@ -6,7 +6,9 @@ map with point-to-plane factors plus inter-keyframe odometry priors, by
 Gauss-Newton on the banded 6K x 6K normal system (keyframe 0 gauge-fixed).
 `windowed_ba` runs on one device (`windowed_ba_program` as one captured
 program); `make_sharded_windowed_ba` partitions
-the keyframes and the map blocks over the map mesh (parallel.mesh).
+the keyframes and the map blocks over the map mesh (parallel.mesh), and
+`sharded_windowed_ba_program` runs it as one captured program per rank
+on a capturable mesh.
 
 The association (kNN over the live map, neighbourhood PCA, closest
 neighbour) is the plane kernel's fused entry `plane_fit.knn_plane_assoc`:
@@ -214,8 +216,8 @@ def make_sharded_windowed_ba(mesh: Mesh, n_keyframes: int, *,
         mine = slice(me * k_local, (me + 1) * k_local)
         pts_l = window.points[mine].reshape(k_local * N, 3)
         val_l = window.pt_valid[mine].reshape(k_local * N)
-        kf_l = (me * k_local + torch.arange(
-            k_local, dtype=torch.int32, device=dev).repeat_interleave(N))
+        kf_l = me * k_local + torch.arange(
+            k_local * N, dtype=torch.int32, device=dev) // N
         threshold = torch.ones((), dtype=torch.int32, device=dev)
         q, t = window.q, window.t
         ovf = torch.zeros((), dtype=torch.int32, device=dev)
@@ -252,10 +254,12 @@ def make_sharded_windowed_ba(mesh: Mesh, n_keyframes: int, *,
             j = torch.cat([j_rot, normal], dim=-1)                # (W, 6)
             jw = j * w[:, None]
             kf_tgt = torch.where(w > 0, kf_q, K)                 # K: spare
-            h_all = torch.zeros((K + 1, 6, 6), dtype=jw.dtype, device=dev)
-            h_all.index_add_(0, kf_tgt, torch.einsum("wi,wj->wij", jw, j))
-            b_all = torch.zeros((K + 1, 6), dtype=jw.dtype, device=dev)
-            b_all.index_add_(0, kf_tgt, jw * dist[:, None])
+            h_all = graphs.scatter_sum(
+                torch.zeros((K + 1, 6, 6), dtype=jw.dtype, device=dev),
+                kf_tgt, torch.einsum("wi,wj->wij", jw, j))
+            b_all = graphs.scatter_sum(
+                torch.zeros((K + 1, 6), dtype=jw.dtype, device=dev),
+                kf_tgt, jw * dist[:, None])
             h_all = mesh.psum(h_all[:K])
             b_all = mesh.psum(b_all[:K])
             dx = _assemble_and_solve(h_all, b_all, q, t, q_odo, t_odo,
@@ -265,3 +269,35 @@ def make_sharded_windowed_ba(mesh: Mesh, n_keyframes: int, *,
         return q, t, mesh.psum(ovf)
 
     return run
+
+
+def sharded_windowed_ba_program(programs: dict, mesh: Mesh,
+                                local_map: vm.VoxelMap,
+                                window: KeyframeWindow, q_odo: torch.Tensor,
+                                t_odo: torch.Tensor, **kw
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """`make_sharded_windowed_ba(mesh, K, **kw)` called on this rank as
+    one captured program kept in `programs` (`utils.graphs.call`; the JAX
+    package's jitted sharded BA, sr_livo_tpu/parallel/ba.py:282-285) on a
+    capturable mesh (`Mesh.capturable`), eagerly on a gloo mesh.  The
+    live local map is the program's state, adopted and read in place,
+    never copied.  One graph holds the whole loop: its `iters`
+    Gauss-Newton iterations unrolled with their two psums each and the
+    overflow psum after them, the collectives of the eager function in
+    its order (a graph an iteration would carry the overflow between
+    replays and psum it apart).  Returns (q, t, route_overflow), the
+    program's outputs, which its next call overwrites."""
+    run = make_sharded_windowed_ba(mesh, window.q.shape[0], **kw)
+    if not mesh.capturable:
+        return run(local_map, window, q_odo, t_odo)
+
+    def fn(live_map, inputs):
+        return live_map, run(live_map, *inputs)
+    key = ("sharded_windowed_ba", tuple(window.points.shape),
+           tuple(local_map.points.shape), tuple(sorted(kw.items())))
+    _, out = graphs.call(
+        programs, key, fn, local_map, (window, q_odo, t_odo),
+        name=f"sharded_windowed_ba[{window.points.shape[0]}x"
+             f"{window.points.shape[1]}]")
+    return out

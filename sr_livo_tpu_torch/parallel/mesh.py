@@ -15,6 +15,9 @@ them through host memory).  A mesh without a process group is a world
 of one: rank 0 of 1, and every collective is the identity, as on JAX's
 1-device mesh.  A mesh made over a process group calls its collectives
 whatever the group's size, so a world of one over NCCL runs NCCL.
+`capturable` says whether the engine's functions over the mesh run as
+captured programs (`utils.graphs`), the counterpart of the JAX
+package's jitted `shard_map` programs.
 
 `map_sharding` and `replicated` have no counterpart.  A sharded tensor is
 each rank's own local part (the voxel map: every rank holds its own
@@ -51,6 +54,17 @@ class Mesh:
                    else "none")
         return (f"Mesh({self.axis}: rank {self.rank} of {self.size} on "
                 f"{self.device}, backend {backend})")
+
+    @property
+    def capturable(self) -> bool:
+        """Whether the engine's functions over this mesh run as captured
+        programs (`utils.graphs`): a world of one without a group (its
+        collectives are identities) or an NCCL group (NCCL's collectives
+        are CUDA kernels a graph records).  Not over gloo, which stages
+        CUDA tensors through host memory, a copy a capture refuses: there
+        the functions run eagerly."""
+        return (self.group is None
+                or dist.get_backend(self.group) == dist.Backend.NCCL)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks (`jax.lax.psum`); every rank gets the same

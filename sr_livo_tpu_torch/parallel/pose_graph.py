@@ -116,8 +116,8 @@ def _dense_iteration(graph: PoseGraph, q, t, damping: float):
     H.index_put_((e_i, e_j), h_ij, accumulate=True)
     H.index_put_((e_j, e_i), h_ij.transpose(-1, -2), accumulate=True)
     b = torch.zeros((n, 6), **f)
-    b.index_add_(0, e_i, b_i)
-    b.index_add_(0, e_j, b_j)
+    graphs.scatter_sum(b, e_i, b_i)
+    graphs.scatter_sum(b, e_j, b_j)
 
     H_full = H.permute(0, 2, 1, 3).reshape(dim, dim)
     # gauge fix node 0 + damping
@@ -143,22 +143,22 @@ def _pcg_iteration(graph: PoseGraph, q, t, damping: float, cg_iters: int):
         rx = (torch.einsum("eij,ej->ei", ji, x[e_i])
               + torch.einsum("eij,ej->ei", jj, x[e_j])) * w
         y = torch.zeros((n, 6), **f)
-        y.index_add_(0, e_i, torch.einsum("eij,ei->ej", ji, rx))
-        y.index_add_(0, e_j, torch.einsum("eij,ei->ej", jj, rx))
+        graphs.scatter_sum(y, e_i, torch.einsum("eij,ei->ej", ji, rx))
+        graphs.scatter_sum(y, e_j, torch.einsum("eij,ei->ej", jj, rx))
         y = y + damping * x
         return y + gauge * x                             # gauge fix
 
     wres = res * w
     b = torch.zeros((n, 6), **f)
-    b.index_add_(0, e_i, torch.einsum("eij,ei->ej", ji, wres))
-    b.index_add_(0, e_j, torch.einsum("eij,ei->ej", jj, wres))
+    graphs.scatter_sum(b, e_i, torch.einsum("eij,ei->ej", ji, wres))
+    graphs.scatter_sum(b, e_j, torch.einsum("eij,ei->ej", jj, wres))
 
     # block-Jacobi preconditioner from the per-node diagonal blocks
     ji_w = ji * w[:, :, None]
     jj_w = jj * w[:, :, None]
     diag = torch.zeros((n, 6, 6), **f)
-    diag.index_add_(0, e_i, torch.einsum("eki,ekj->eij", ji_w, ji))
-    diag.index_add_(0, e_j, torch.einsum("eki,ekj->eij", jj_w, jj))
+    graphs.scatter_sum(diag, e_i, torch.einsum("eki,ekj->eij", ji_w, ji))
+    graphs.scatter_sum(diag, e_j, torch.einsum("eki,ekj->eij", jj_w, jj))
     diag = diag + damping * eye6[None]
     diag = diag + gauge[:, :, None] * eye6[None]
     m_inv = torch.linalg.inv_ex(diag).inverse

@@ -114,7 +114,7 @@ def pack_for_exchange(dest: torch.Tensor, valid: torch.Tensor,
     buf = torch.zeros((n * budget + 1, d), dtype=rows.dtype, device=dev)
     buf[pos] = rows
     bval = torch.zeros((n * budget + 1,), dtype=torch.bool, device=dev)
-    bval[pos] = True
+    bval.index_fill_(0, pos, True)
     dropped = torch.sum(valid & ~ok, dtype=torch.int32)
     return (buf[:-1].reshape(n, budget, d), bval[:-1].reshape(n, budget),
             dropped)
@@ -144,7 +144,7 @@ def compact(rows: torch.Tensor, valid: torch.Tensor, out_size: int
                       dtype=rows.dtype, device=dev)
     out[dst] = rows
     oval = torch.zeros((out_size + 1,), dtype=torch.bool, device=dev)
-    oval[dst] = True
+    oval.index_fill_(0, dst, True)
     dropped = (torch.sum(valid, dtype=torch.int32)
                - torch.sum(ok, dtype=torch.int32))
     return out[:-1], oval[:-1], dropped

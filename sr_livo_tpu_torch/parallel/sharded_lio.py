@@ -43,6 +43,19 @@ Every rank calls the same collectives in the same order: the host reads
 only replicated values (IEKF convergence, the weak-solve retry) to decide
 anything that leads to a collective.  The local map is updated in place,
 like the single-device engine's.
+
+Programs.  The JAX package jits each phase's step, `map_size`, `compact`
+and the profile prefixes (`_steps`, sr_livo_tpu/parallel/sharded_lio.py:
+214-313).  On a capturable mesh (`Mesh.capturable`: a world of one, or
+NCCL) each of them is a `utils.graphs.Program` per rank, kept in
+`ShardedLioEngine.programs`: captured once as a CUDA graph, collectives
+included, and replayed; run directly on the CPU.  Their loops are masked
+rounds and the retry is `graphs.cond`, as in the single-device step, so
+in a replay every round's collectives run, dead rounds and the untaken
+retry included, the same on every rank.  On a gloo mesh, whose
+collectives stage CUDA tensors through host memory and cannot be
+captured, the same functions run eagerly: loops stop on replicated flags
+read back to the host, the retry runs only when taken.
 """
 
 from __future__ import annotations
@@ -57,15 +70,16 @@ from sr_livo_tpu_torch.config import (MOTION_COMP_CONSTANT_VELOCITY,
 from sr_livo_tpu_torch.models import eskf as eskf_mod
 from sr_livo_tpu_torch.models import lio
 from sr_livo_tpu_torch.models.eskf import EskfState, ImuStates
-from sr_livo_tpu_torch.models.odometry import (SweepOutput, WireSweep,
-                                               pack_record, unpack_wire)
+from sr_livo_tpu_torch.models.odometry import (StepInputs, SweepOutput,
+                                               WireSweep, pack_record,
+                                               unpack_wire)
 from sr_livo_tpu_torch.ops import frame as frame_ops
 from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.ops import voxel_map as vm
 from sr_livo_tpu_torch.parallel import routing
 from sr_livo_tpu_torch.parallel.mesh import Mesh
 from sr_livo_tpu_torch.parallel.routing import shard_of
-from sr_livo_tpu_torch.utils import lie
+from sr_livo_tpu_torch.utils import graphs, lie
 
 # The stages `make_profile_step` can stop after, in step order.
 PROFILE_STAGES = ("deskew", "frame_sub", "kp_sub", "route_q", "iekf",
@@ -125,7 +139,7 @@ def _scatter_rows(rows: torch.Tensor, valid: torch.Tensor,
                       device=rows.device)
     tbl[tgt] = rows
     tvl = torch.zeros((size + 1,), dtype=torch.bool, device=rows.device)
-    tvl[tgt] = True
+    tvl.index_fill_(0, tgt, True)
     return tbl[:size], tvl[:size]
 
 
@@ -133,12 +147,22 @@ def _histogram(index: torch.Tensor, on: torch.Tensor, size: int
                ) -> torch.Tensor:
     """(size,) int32 with 1 at index[i] where `on` (distinct indices)."""
     flags = torch.zeros((size + 1,), dtype=torch.int32, device=index.device)
-    flags[torch.where(on, index.to(torch.int64), size)] = 1
+    flags.index_fill_(0, torch.where(on, index.to(torch.int64), size), 1)
     return flags[:size]
 
 
 def _exclusive_prefix(flags: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(flags, 0) - flags
+
+
+def _sweep_of(inputs: StepInputs):
+    """The step inputs' sweep as a SweepInput (a WireSweep unpacked)."""
+    sweep = inputs.sweep
+    return unpack_wire(sweep) if isinstance(sweep, WireSweep) else sweep
+
+
+def _shapes(tree) -> tuple:
+    return tuple(tuple(t.shape) for t in graphs.tree_leaves(tree))
 
 
 class ShardedLioEngine:
@@ -169,9 +193,8 @@ class ShardedLioEngine:
             raise ValueError("the block side must cover the halo corner "
                              "rule: 2^map_block_bits >= 2*halo + 1")
         if cfg.retry_wider_neighborhood:
-            skipped = [ph for ph, nb in
-                       (("init", 2), ("steady", cfg.icp.voxel_neighborhood))
-                       if nb + 1 > self.halo]
+            skipped = [ph for ph in ("init", "steady")
+                       if not self.retries(ph)]
             if skipped:
                 warnings.warn(
                     "ShardedLioEngine: retry_wider_neighborhood needs "
@@ -210,6 +233,10 @@ class ShardedLioEngine:
         self.perm = torch.as_tensor(
             frame_ops.subsample_perm(sh.max_sweep_points),
             device=self.device).to(torch.int64)
+        # The programs of a capturable mesh (`_call`), keyed as the JAX
+        # package keys `_steps`; the steps of all phases share the state
+        # and map buffers, adopted from the first step.
+        self.programs: dict = {}
 
     def init_state(self) -> EskfState:
         return eskf_mod.init_state(self.cfg.gravity_acc, self.dtype,
@@ -222,15 +249,30 @@ class ShardedLioEngine:
                            self.cfg.shapes.map_voxel_points, self.dtype,
                            self.device)
 
+    def _call(self, key, fn, state, inputs, name: str):
+        """`fn(state, inputs) -> (new_state, outputs)` as the program
+        `programs[key]` on a capturable mesh (`graphs.call`: `state`
+        adopted and updated in place, `inputs` copied), run eagerly on a
+        gloo mesh.  Returns (state, outputs)."""
+        if self.mesh.capturable:
+            return graphs.call(self.programs, key, fn, state, inputs,
+                               name=name)
+        return fn(state, inputs)
+
     def map_size(self, vmap: vm.VoxelMap) -> torch.Tensor:
         """Owned-voxel point count over all ranks (halo copies excluded):
-        the single-device vm.map_size of the same map."""
-        owned = ((vmap.keys[:, 0] != vm.EMPTY)
-                 & (shard_of(vmap.keys, self.n_shards, self.block_bits)
-                    == self.mesh.rank))
-        return self.mesh.psum(torch.sum(torch.where(
-            owned, vmap.counts, torch.zeros_like(vmap.counts)),
-            dtype=torch.int64))
+        the single-device vm.map_size of the same map.  A program over
+        `vmap`, which it adopts and reads in place; the returned count is
+        the program's output, which its next call overwrites."""
+        def fn(m, _):
+            owned = ((m.keys[:, 0] != vm.EMPTY)
+                     & (shard_of(m.keys, self.n_shards, self.block_bits)
+                        == self.mesh.rank))
+            return m, self.mesh.psum(torch.sum(torch.where(
+                owned, m.counts, torch.zeros_like(m.counts)),
+                dtype=torch.int64))
+        return self._call(("map_size", tuple(vmap.points.shape)), fn, vmap,
+                          None, "sharded_map_size")[1]
 
     def compact(self, vmap: vm.VoxelMap, location
                 ) -> Tuple[vm.VoxelMap, torch.Tensor]:
@@ -241,33 +283,50 @@ class ShardedLioEngine:
         Ownership is static, so each rank compacts its local table on its
         own: owned voxels and halo replicas evict by the same distance
         rule against the replicated position, which keeps replicas
-        consistent with their owners.  Returns (new local map, dropped-in-
-        rehash count psum'd over the ranks).  Drive it every
-        `eviction_every_n_frames` when `enable_map_eviction` is set; it is
-        off the per-sweep path."""
+        consistent with their owners.  Returns (local map, dropped-in-
+        rehash count psum'd over the ranks).  As a program (the JAX
+        package's jitted `compact` with the map donated) the new table is
+        built in the graph's pool and copied into `vmap`, which is
+        returned; eagerly (gloo) `vmap` is left as it was and a new map
+        returned.  Drive it every `eviction_every_n_frames` when
+        `enable_map_eviction` is set; it is off the per-sweep path."""
         loc = torch.as_tensor(location, dtype=self.dtype, device=self.device)
-        m2, dropped = vm.compact_map(
-            vmap, loc, distance=self.cfg.odometry_options.max_distance,
-            max_probe=self.cfg.shapes.map_max_probe)
-        return m2, self.mesh.psum(dropped)
+        distance = self.cfg.odometry_options.max_distance
+        max_probe = self.cfg.shapes.map_max_probe
+
+        def fn(old, where):
+            new, dropped = vm.compact_map(old, where, distance=distance,
+                                          max_probe=max_probe)
+            return new, self.mesh.psum(dropped)
+        return self._call(("compact", tuple(vmap.points.shape), distance,
+                           max_probe), fn, vmap, loc, "sharded_compact")
 
     def make_profile_step(self, stop_after: str, phase: str = "steady"):
         """A prefix of the per-sweep step that stops after the named stage
         (one of PROFILE_STAGES) and returns one replicated scalar
-        checksum: per-stage cost by prefix differencing.  Prefixes that
-        reach the insert run on a copy of the local map, which the step
-        would otherwise update in place."""
+        checksum: per-stage cost by prefix differencing.  Returns
+        run(state, vmap, sweep), a program per prefix over the adopted
+        (state, vmap), which it leaves as they were: prefixes that reach
+        the insert run on a copy of the local map, made in the graph's
+        pool on each replay, since the step updates the map in place."""
         if stop_after not in PROFILE_STAGES:
             raise ValueError(f"stop_after {stop_after!r} is not one of "
                              f"{PROFILE_STAGES}")
 
-        def run(state, vmap, sweep):
+        def fn(state, inputs: StepInputs):
+            s, vmap = state
             if stop_after in _AFTER_INSERT:
                 vmap = vm.VoxelMap(*(t.clone() for t in vmap))
-            if isinstance(sweep, WireSweep):
-                sweep = unpack_wire(sweep)
-            return self._sweep_core(state, vmap, sweep, phase=phase,
-                                    stop_after=stop_after)
+            return state, self._sweep_core(s, vmap, _sweep_of(inputs),
+                                           phase=phase,
+                                           stop_after=stop_after)
+
+        def run(state, vmap, sweep):
+            inputs = StepInputs(sweep, None)
+            key = ("profile", stop_after, phase, type(sweep).__name__,
+                   _shapes((state, vmap, inputs)))
+            return self._call(key, fn, (state, vmap), inputs,
+                              f"sharded_profile[{stop_after}]")[1]
         return run
 
     def phase(self, frame_id: int, gyr_rate: float = 0.0) -> str:
@@ -278,15 +337,45 @@ class ShardedLioEngine:
             return "steady_dense"
         return "steady"
 
+    def retries(self, phase: str) -> bool:
+        """Whether `phase`'s step has the weak-solve retry: the widened
+        neighbourhood must stay within the halo."""
+        nb = 2 if phase == "init" else self.cfg.icp.voxel_neighborhood
+        return self.cfg.retry_wider_neighborhood and nb + 1 <= self.halo
+
+    def step_fn(self, phase: str):
+        """The step program's function, the JAX package's
+        `_steps[phase]`: fn((EskfState, local VoxelMap), StepInputs) ->
+        ((EskfState, VoxelMap), SweepOutput without its state and map)."""
+        def fn(state, inputs: StepInputs):
+            out = self._sweep_core(state[0], state[1], _sweep_of(inputs),
+                                   phase=phase)
+            return ((out.state, out.voxel_map),
+                    out._replace(state=None, voxel_map=None))
+        return fn
+
     def step(self, state: EskfState, voxel_map: vm.VoxelMap, sweep,
              frame_id: int, gyr_rate: float = 0.0) -> SweepOutput:
         """One sweep on this rank.  `state` and `sweep` (a SweepInput or
         a WireSweep on the mesh's device) are the same on every rank;
-        `voxel_map` is this rank's local table, updated in place."""
-        if isinstance(sweep, WireSweep):
-            sweep = unpack_wire(sweep)
-        return self._sweep_core(state, voxel_map, sweep,
-                                phase=self.phase(frame_id, gyr_rate))
+        `voxel_map` is this rank's local table, updated in place.
+
+        On a capturable mesh the step is one program per phase (keyed by
+        phase, association mode, the retry, the sweep's type and shapes,
+        as `LioEngine.step`), its state (EskfState, VoxelMap) adopted
+        from the first call and shared by all phases: the returned state
+        and map are the program's buffers and its other outputs the
+        graph's own tensors, which the next step overwrites, so a caller
+        clones what it keeps past it.  On a gloo mesh `_sweep_core` runs
+        eagerly."""
+        phase = self.phase(frame_id, gyr_rate)
+        inputs = StepInputs(sweep, None)
+        key = (phase, self.cfg.cache_association, self.retries(phase),
+               type(sweep).__name__, _shapes(inputs))
+        (state, voxel_map), out = self._call(
+            key, self.step_fn(phase), (state, voxel_map), inputs,
+            f"sharded_lio_step[{phase}]")
+        return out._replace(state=state, voxel_map=voxel_map)
 
     # ------------------------------------------------------------------
     def _sweep_core(self, state: EskfState, local_map: vm.VoxelMap, sweep,
@@ -455,20 +544,23 @@ class ShardedLioEngine:
             return mesh.psum(
                 torch.sum(torch.where(qval[:, None], key_q, 0.0)))
 
-        # 6. Distributed IESKF: local rows, one packed psum per iteration.
-        def _run_iekf(nb):
+        # 6. Distributed IESKF: local rows, one packed psum per round.
+        def _run_iekf(nb, active=None):
             return self._iekf(state_pred, local_map, key_q, qval, rank_q,
                               last_trans, sweep.threshold_capacity,
-                              nb_voxels=nb, max_iters=max_iters)
+                              nb_voxels=nb, max_iters=max_iters,
+                              active=active)
 
         state_upd, summary = _run_iekf(nb_voxels)
-        if cfg.retry_wider_neighborhood and nb_voxels + 1 <= self.halo:
-            # weak-solve retry with the single-device semantics; the
-            # summary is replicated, so every rank takes the same branch
-            strong = bool(summary.success) and (
-                int(summary.num_residuals) >= icp.min_num_residuals)
-            if not strong:
-                state_upd, summary = _run_iekf(nb_voxels + 1)
+        if self.retries(phase):
+            # weak-solve retry with the single-device semantics
+            # (`graphs.cond`); the summary is replicated, so every rank
+            # takes the same branch
+            weak = ~(summary.success
+                     & (summary.num_residuals >= icp.min_num_residuals))
+            state_upd, summary = graphs.cond(
+                weak, lambda active: _run_iekf(nb_voxels + 1, active),
+                (state_upd, summary))
         state_new = eskf_mod.map_state(
             lambda a, b: torch.where(sweep.do_optimize, a, b),
             state_upd, state_pred)
@@ -562,7 +654,7 @@ class ShardedLioEngine:
         sel_dest = torch.zeros((self.C_rep + 1,), **i32)
         sel_dest[dsti] = owners_a.reshape(-1)
         val_c = torch.zeros((self.C_rep + 1,), dtype=torch.bool, device=dev)
-        val_c[dsti] = True
+        val_c.index_fill_(0, dsti, True)
         overflow += (torch.sum(ok_flat) - torch.sum(ok2)).to(torch.int32)
         buf6, bval6, d = routing.pack_for_exchange(
             sel_dest[:-1], val_c[:-1], ins_rows[sel_row[:-1]], n, self.B6)
@@ -604,7 +696,8 @@ class ShardedLioEngine:
                                device=dev)
         out_pack[torch.where(seg_val, r_f.to(torch.int64), F), 0:3] = \
             frame_world_s
-        out_pack[torch.where(ins_val & accepted, ins_rf, F), 3] = 1.0
+        out_pack[:, 3].index_fill_(
+            0, torch.where(ins_val & accepted, ins_rf, F), 1.0)
         out_pack[F] = 0.0
         out_pack[F, 0] = overflow.to(out_pack.dtype)
         out_pack = mesh.psum(out_pack)
@@ -626,17 +719,22 @@ class ShardedLioEngine:
 
     # ------------------------------------------------------------------
     def _iekf(self, state, local_map, key_q, qval, rank_q, last_trans,
-              threshold_capacity, *, nb_voxels, max_iters):
+              threshold_capacity, *, nb_voxels, max_iters, active=None):
         """The IESKF update on this rank's routed keypoints: the
         association on the local table (`knn_plane_assoc` once per update
-        with `cache_association`, else `knn_plane_rows` per iteration),
-        the global keypoint-order residual cap, and one packed 43-float
-        psum of the normal equations per iteration."""
+        with `cache_association`, else `knn_plane_rows` per round), the
+        global keypoint-order residual cap, and one packed 43-float psum
+        of the normal equations per round (`lio.iekf_iterations`).  Every
+        round calls both psums, a dead one included (its keypoints
+        masked), so the ranks' collectives stay in step.  `active` (a
+        device bool) masks the whole update, as `lio.iekf_update`'s."""
         lio.counts["updates"] += 1
         cfg = self.cfg
         icp = cfg.icp
         sh = cfg.shapes
         mesh = self.mesh
+        if active is not None:
+            qval = qval & active
         loc_q = key_q @ self.r_il.T + self.t_il       # IMU frame
         nq = loc_q.shape[0]
         lam_w, lam_nb = lio._lam(icp.weight_alpha, icp.weight_neighborhood)
@@ -662,18 +760,20 @@ class ShardedLioEngine:
                 threshold_capacity=threshold_capacity, chunk=sh.query_chunk,
                 **search)
 
-            def rows(s):
+            def rows(s, _live):
                 return plane_fit.plane_rows_from_assoc(
                     *assoc, world_at(s), loc_q, lie.quat_to_rot(s.q),
                     last_trans, qval, **tail)
         else:
-            def rows(s):
+            def rows(s, live):
+                # a dead round searches no keypoint
                 return plane_fit.knn_plane_rows(
                     local_map, world_at(s), loc_q, lie.quat_to_rot(s.q),
-                    last_trans, qval, threshold_capacity, **search, **tail)
+                    last_trans, qval & live, threshold_capacity, **search,
+                    **tail)
 
-        def normal_equations(s):
-            h_x, h, good = rows(s)
+        def normal_equations(s, live):
+            h_x, h, good = rows(s, live)
             if cap > 0:
                 # exact global keypoint-order prefix (optimize.cpp:107):
                 # keypoint ranks are globally unique, so the good flags go
@@ -694,7 +794,7 @@ class ShardedLioEngine:
                     packed[36:42].to(h.dtype), packed[42].to(torch.int32))
 
         return lio.iekf_iterations(
-            state, state, normal_equations,
+            state, state, normal_equations, go=active,
             min_number_neighbors=icp.min_number_neighbors,
             max_iters=max_iters,
             threshold_translation_norm=icp.threshold_translation_norm,

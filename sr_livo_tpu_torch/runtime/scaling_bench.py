@@ -16,13 +16,20 @@ model:
      every static shape (the N/n slice, the exchange buffers at their
      received size n*B, the local query batch and table) takes its n-rank
      value, and every collective is the identity.  What remains is the
-     compute one card of an n-card run does.
+     compute one card of an n-card run does.  A world of one is
+     capturable (`Mesh.capturable`), so each proxy's step replays its
+     captured program, as the single-device baseline's does: the JAX
+     script compares jitted programs too.
   3. `t_replicated` — the replicated remainder alone
      (`replicated_remainder`: predict_sweep's IMU scan plus six rounds of
-     the 17x17 gain solves).
+     the 17x17 gain solves), replayed as a program (`replicated_program`,
+     the script's jitted `repl_only`).
   4. The collectives (`comm_model`), from the engine's exact buffer sizes
-     and the collectives it calls: bytes / link_bw + n_collectives *
-     latency.  `link_bw` is the card's NVLink rate per direction as
+     and the collectives its program calls (`count_collectives`: the
+     step's function in capture form, so every masked IEKF round counts,
+     as every one calls the packed psum in a replay; the JAX model counts
+     the iterations run): bytes / link_bw + n_collectives * latency.
+     `link_bw` is the card's NVLink rate per direction as
      `nvidia-smi nvlink -s` reports it (links x per-link speed), or
      `--link-gbs` where no link is reported; the latency is the median of
      a small all-reduce on a world of one (NCCL on the card, gloo on the
@@ -31,17 +38,19 @@ model:
      on the one device (n ranks sharing one card, or n CPU processes):
      the collectives are staged through host memory and the ranks share
      the card and the host's cores, so the walls are floors, not
-     estimates.  The 8-rank run also carries the routing-overflow check
-     at the weak-8 workload: the 1-device proxies report overflow because
+     estimates.  Gloo's collectives cannot be captured, so the walls run
+     the step eagerly, the 1-rank wall too (its mesh is the gloo group).
+     The 8-rank run also carries the routing-overflow check at the
+     weak-8 workload: the 1-device proxies report overflow because
      their slice skips the hash-range spreading (a proxy artifact), so
      only a real 8-rank run's counter says whether the budgets hold.  The
      parent builds the plane kernel before it starts the ranks.
   6. Per-stage per-rank times (`stage_profile`) by differencing the
-     step's prefixes (ShardedLioEngine.make_profile_step).  The port runs
-     eagerly, and nothing of a prefix is dead-code eliminated as XLA does
-     in the JAX script: every prefix from `insert` on runs the full-table
-     insert and includes the copy of the local map that make_profile_step
-     makes (the step updates the map in place).
+     step's prefixes (ShardedLioEngine.make_profile_step), each replayed
+     as its program.  Nothing of a prefix is dead-code eliminated as XLA
+     does in the JAX script: every prefix from `insert` on runs the
+     full-table insert and includes the copy of the local map that
+     make_profile_step makes (the step updates the map in place).
 
 Strong scaling: efficiency_strong_n = t_single / (n * (t_pershard(n) +
 comm(n))), the same workload split n ways.  Weak scaling:
@@ -57,7 +66,10 @@ the JAX script's keys (`link_bw_gbs` in place of its `ici_bw_gbs`), plus
 the device, each timed engine's plane-kernel launches and IEKF updates
 (`launches`), the strong-1 proxy's gap to the single-device trajectory on
 the same sweeps (`strong1_vs_single_max_gap_m`) and the collectives one
-steady sweep of the strong-8 proxy called, counted on its mesh.
+steady sweep of the strong-8 proxy's program calls, counted on its mesh,
+with the IEKF rounds they span (`psum_rounds`, the `iters` the model is
+given) and the iterations the step took.  Each run's programs are
+dropped, and the allocator's cache emptied, before the next run.
 """
 
 from __future__ import annotations
@@ -78,12 +90,14 @@ import torch.distributed as dist
 from sr_livo_tpu_torch.config import LivoConfig
 from sr_livo_tpu_torch.models import eskf as eskf_mod
 from sr_livo_tpu_torch.models import lio
-from sr_livo_tpu_torch.models.odometry import LioEngine, SweepInput
+from sr_livo_tpu_torch.models.odometry import (LioEngine, StepInputs,
+                                               SweepInput)
 from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.parallel.mesh import make_mesh
 from sr_livo_tpu_torch.parallel.sharded_lio import (PROFILE_STAGES,
                                                     ShardedLioEngine,
                                                     compute_budgets)
+from sr_livo_tpu_torch.utils import graphs
 from sr_livo_tpu_torch.utils.device import (device_record, resolve_device,
                                             synchronize)
 
@@ -255,6 +269,20 @@ def time_engine(make_engine, sweeps, repeats: int = 3):
     return best, run
 
 
+def _drop(*runs: Run) -> None:
+    """Drops the runs' programs: an engine and its programs' functions
+    refer to each other, so without this their graphs' pools would stay
+    allocated until the garbage collector runs."""
+    for run in runs:
+        run.engine.programs.clear()
+
+
+def _free(device) -> None:
+    """Returns the memory of dropped programs' pools to the device."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def collectives_per_sweep(iters: int = 6, cap: bool = False) -> dict:
     """The collectives one sweep of the port's ShardedLioEngine calls
     (without the weak-solve retry): 5 all_to_alls (validity packed into
@@ -262,8 +290,9 @@ def collectives_per_sweep(iters: int = 6, cap: bool = False) -> dict:
     the 2 rank-histogram psums of the frame and keypoint subsamples, the
     insert-gate histogram psum (base_cfg caps inserts globally:
     max_insert_points < max_frame_points), one packed psum per IEKF
-    iteration (+1 keypoint-rank histogram psum per iteration with the
-    residual cap) and one fused output psum."""
+    round (+1 keypoint-rank histogram psum per round with the residual
+    cap) and one fused output psum.  `iters` is the rounds: the
+    iterations run eagerly, all `max_iters + 1` in a program."""
     return {"all_to_all": 5, "psum": 2 + 1 + iters * (2 if cap else 1) + 1,
             "all_gather": 0}
 
@@ -292,8 +321,14 @@ def comm_model(b: dict, n: int, iters: int = 6, cap: bool = False, *,
 
 def count_collectives(engine: ShardedLioEngine, state, vmap, sweep,
                       frame_id: int) -> dict:
-    """Runs one step and counts the collectives it calls on the engine's
-    mesh, with the step's IEKF iterations (`iekf_iterations`)."""
+    """The collectives the engine's step program calls on its mesh: the
+    step's function run once in capture form (`graphs.capture_form()`,
+    every masked IEKF round and both branches of a retry, as a capture
+    records them) on copies of `state` and `vmap`, the mesh's
+    collectives wrapped and counted; the counters it advances are set
+    back.  Also the IEKF rounds the step spans (`psum_rounds`, each
+    calls the packed psum) and the iterations it took
+    (`iekf_iterations`, its summary's)."""
     mesh = engine.mesh
     calls = dict.fromkeys(COLLECTIVES, 0)
 
@@ -308,9 +343,13 @@ def count_collectives(engine: ShardedLioEngine, state, vmap, sweep,
     for name in COLLECTIVES:
         setattr(mesh, name, counted(name))
     try:
-        before = lio.counts["iterations"]
-        engine.step(state, vmap, sweep, frame_id)
-        calls["iekf_iterations"] = lio.counts["iterations"] - before
+        with graphs.capture_form(), graphs.counts_kept():
+            before = lio.counts["iterations"]
+            _, out = engine.step_fn(engine.phase(frame_id))(
+                graphs.tree_map(torch.clone, (state, vmap)),
+                StepInputs(sweep, None))
+            calls["psum_rounds"] = lio.counts["iterations"] - before
+        calls["iekf_iterations"] = int(out.summary.iterations)
     finally:
         for name in COLLECTIVES:
             delattr(mesh, name)
@@ -329,34 +368,50 @@ def replicated_remainder(engine, state, sweep):
     hth_h = torch.ones(6, **f)
     cov, acc = st.cov, torch.zeros((), **f)
     for _ in range(6):
-        temp = torch.linalg.inv(cov / 0.001)
+        # inv_ex: no error check, so no host read (a program captures it)
+        temp = torch.linalg.inv_ex(cov / 0.001)[0]
         temp[0:6, 0:6] += hth
-        temp_inv = torch.linalg.inv(temp)
+        temp_inv = torch.linalg.inv_ex(temp)[0]
         k_h = temp_inv[:, 0:6] @ hth_h
         cov = cov + 1e-9 * torch.outer(k_h, k_h)
         acc = acc + k_h[0]
     return st.p + acc, cov
 
 
+def replicated_program(programs: dict, engine, state, sweep):
+    """`replicated_remainder` as one captured program kept in `programs`
+    (the JAX script's jitted `repl_only`, scripts/scaling_bench.py:283): a
+    pure function over the copied `state` and `sweep`.  Returns the
+    program's (p, cov), which its next call overwrites."""
+    def fn(_, inputs):
+        return None, replicated_remainder(engine, *inputs)
+    key = ("replicated_remainder", tuple(
+        tuple(t.shape) for t in graphs.tree_leaves((state, sweep))))
+    return graphs.call(programs, key, fn, None, (state, sweep),
+                       name="replicated_remainder")[1]
+
+
 def time_replicated(engine, sweep, reps: int = 20) -> float:
-    """Mean seconds of `replicated_remainder` over `reps` calls after one."""
-    s0 = engine.init_state()
-    synchronize(engine.device)
-    replicated_remainder(engine, s0, sweep)
+    """Mean seconds of `reps` replays of `replicated_program` after its
+    first call."""
+    programs = {}
+    replicated_program(programs, engine, engine.init_state(), sweep)
+    (prog,) = programs.values()
     synchronize(engine.device)
     t0 = time.perf_counter()
     for _ in range(reps):
-        replicated_remainder(engine, s0, sweep)
+        prog()
     synchronize(engine.device)
     return (time.perf_counter() - t0) / reps
 
 
 def stage_profile(cfgp: LivoConfig, ov: dict, sweeps_p: list, device
                   ) -> tuple:
-    """Per-stage ms of the per-rank steady step: the best of 5 of each
-    prefix (make_profile_step) on the state and map after one pass over
-    the sweeps, minus the previous prefix's.  Returns (times, the
-    launches and IEKF updates of the warm-up pass and the prefixes)."""
+    """Per-stage ms of the per-rank steady step: the best of 5 calls of
+    each prefix's program (make_profile_step; the first call, its
+    capture, untimed) on the state and map after one pass over the
+    sweeps, minus the previous prefix's.  Returns (times, the launches
+    and IEKF updates of the warm-up pass and the prefixes)."""
     eng = ShardedLioEngine(cfgp, make_mesh(1, device=device),
                            budget_override=ov)
     run = warm_run(lambda: eng, sweeps_p)
@@ -378,6 +433,7 @@ def stage_profile(cfgp: LivoConfig, ov: dict, sweeps_p: list, device
     times["prefix_total_ms"] = prev * 1e3
     counts = {k: run.counts[k] + v - before[k]
               for k, v in _counters().items()}
+    _drop(run)
     return times, counts
 
 
@@ -516,7 +572,8 @@ def rank_main(rank: int, world: int, workdir: str, device) -> int:
     try:
         inp = torch.load(os.path.join(workdir, "inputs.pt"),
                          map_location=dev, weights_only=False)
-        mesh = make_mesh(world, device=dev)
+        # the gloo group even for one rank: the walls run eagerly
+        mesh = make_mesh(device=dev, group=dist.group.WORLD)
         out = {}
         if "wall" in inp["tasks"][world]:
             sweeps = [SweepInput(*s) for s in inp["sweeps"]]
@@ -544,6 +601,13 @@ def rank_main(rank: int, world: int, workdir: str, device) -> int:
 
 def _positions(run: Run) -> np.ndarray:
     return torch.stack(run.positions).cpu().numpy()
+
+
+def _programs_built(run: Run) -> list:
+    """The programs a run's engine built: name, graph nodes (none on the
+    CPU), capture seconds and replays."""
+    return [{"name": p.name, "nodes": p.nodes, "capture_s": p.capture_s,
+             "replays": p.replays} for p in run.engine.programs.values()]
 
 
 def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
@@ -596,14 +660,15 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
     gap = float(np.abs(_positions(live["strong1"])
                        - _positions(live["single"])).max())
     strong8 = live["strong8"]
-    before = _counters()
     counted = count_collectives(
         strong8.engine, strong8.state, strong8.vmap, sweeps[-1],
         cfg.odometry_options.init_num_frames)
-    for k, v in _counters().items():
-        strong8.counts[k] += v - before[k]
+    rounds = counted["psum_rounds"]
     launches = {name: run.counts for name, run in live.items()}
-    del live, runs
+    built = {name: _programs_built(run) for name, run in live.items()}
+    _drop(*live.values())
+    del live, runs, strong8
+    _free(dev)
     t_single = best["single"]
     t_pershard = {n: best[f"strong{n}"] for n in STRONG_N}
     t_weak = {n: best[f"weak{n}"] for n in WEAK_N}
@@ -614,6 +679,7 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
 
     # 3. the replicated remainder: IMU scan + 17x17 solve rounds
     t_repl = time_replicated(LioEngine(cfg, device=dev), sweeps[0])
+    _free(dev)
 
     # 5. walls of real ranks on the device + the real-mesh overflow check
     cfg8 = base_cfg(scale=8)
@@ -629,8 +695,10 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
     # 3b. per-stage per-rank times of the weak-8 and strong-8 steps
     stage_weak8, launches["stage_weak8"] = stage_profile(
         cfg8, pershard_override(cfg8, 8), sweeps8, dev)
+    _free(dev)
     stage_strong8, launches["stage_strong8"] = stage_profile(
         cfg, pershard_override(cfg, 8), sweeps, dev)
+    _free(dev)
     print(f"[scaling] weak-8 stage profile: {stage_weak8}", file=sys.stderr)
     print(f"[scaling] strong-8 stage profile: {stage_strong8}",
           file=sys.stderr)
@@ -639,7 +707,10 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
     t_single8, run8 = runner("single8x", lambda: time_engine(
         lambda: LioEngine(cfg8, device=dev), sweeps8))
     launches["single8x"] = run8.counts
+    built["single8x"] = _programs_built(run8)
+    _drop(run8)
     del run8
+    _free(dev)
     print(f"[scaling] single device at 8x workload: {t_single8*1e3:.2f} ms",
           file=sys.stderr)
     cfg64 = base_cfg(scale=64)
@@ -649,7 +720,10 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
                                  budget_override=pershard_override(cfg64, 8)),
         sweeps64, repeats=2))
     launches["weak64"] = run64.counts
+    built["weak64"] = _programs_built(run64)
+    _drop(run64)
     del run64, sweeps64
+    _free(dev)
     print(f"[scaling] weak per-shard (n=8, 64x global = 8x per rank): "
           f"{t_weak64*1e3:.2f} ms", file=sys.stderr)
 
@@ -659,7 +733,7 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
         latency, lat_src = collective_latency(dev)
 
     def comm(c, n):
-        return comm_model(pershard_budgets(c, n), n, cap=cap,
+        return comm_model(pershard_budgets(c, n), n, rounds, cap,
                           link_bw=link_bw, latency=latency)
 
     comm64 = comm(cfg64, 8)
@@ -688,8 +762,7 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
             "residual_cap": cap,
             "comm_ms_strong_8": comm(cfg, 8) * 1e3,
             "collectives_counted_strong8_steady": counted,
-            "collectives_modeled": collectives_per_sweep(
-                counted["iekf_iterations"], cap)},
+            "collectives_modeled": collectives_per_sweep(rounds, cap)},
         "efficiency_strong": eff_strong,
         "efficiency_weak": eff_weak,
         "stage_profile_weak8_ms": stage_weak8,
@@ -702,6 +775,14 @@ def run_bench(device="cuda", link_gbs=None, coll_latency_us=None,
             "efficiency": eff_weak_sat},
         "strong1_vs_single_max_gap_m": gap,
         "launches": launches,
+        "programs_built": built,
+        "timed_as": {
+            "programs": "step_ms_single_chip, step_ms_pershard, "
+                        "step_ms_pershard_weak, replicated_ms, "
+                        "stage_profile_*, saturating_weak_8: captured "
+                        "programs replayed",
+            "eager": "step_ms_virtual_wall: n ranks over gloo, whose "
+                     "collectives cannot be captured"},
         "note": "t_pershard(n) is the exact per-rank program of an n-rank "
                 "run (budget_override on a world of one, where collectives "
                 "are identities): real compute, no emulation.  Strong = "

@@ -170,6 +170,17 @@ def mark(name: str) -> None:
         into.append((name, ev))
 
 
+def scatter_sum(dst: torch.Tensor, index: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """dst[index[k]] += src[k] for every k, in place, each target's terms
+    summed in the order of k on either device.  On CUDA, `index_add_`
+    adds floats atomically in no fixed order, so two runs of a function,
+    or a replay and its eager run, can part in the last bits; the
+    accumulating `index_put_` sorts the index (stably) and sums in that
+    order, as the CPU does."""
+    return dst.index_put_((index,), src, accumulate=True)
+
+
 def tree_leaves(tree) -> list:
     """The tensor leaves of a pytree, in order (None leaves skipped)."""
     if tree is None:

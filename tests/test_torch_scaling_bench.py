@@ -8,12 +8,14 @@ against the JAX package's script (scripts/scaling_bench.py) on the CPU.
 - `comm_model` given the same bandwidth and latency equals the JAX
   model plus the port's departures (one more collective, the insert-gate
   histogram psum; the IEKF psum's float64 partial sums), to float
-  round-off; the collectives one steady sweep calls, counted on the
-  engine's mesh, are `collectives_per_sweep`'s.
+  round-off; the collectives one steady sweep's program calls, counted
+  on the engine's mesh in capture form (every masked IEKF round), are
+  `collectives_per_sweep`'s at the counted rounds.
 - The efficiency formulas are the script's (`:404-411`, `:400`).
 - `replicated_remainder` against the script's `repl_only` (a closure in
   its `main`), written out here with the JAX package's modules: p and cov
-  within 1e-5 relative.
+  within 1e-5 relative; its program (`replicated_program`) the same
+  bits.
 - The per-shard proxies ShardedLioEngine(world of one, budget_override)
   in lockstep with JAX's on a 1-device mesh over the same 4 sweeps, at
   strong n = 8 and weak n = 2: integer outputs bit-exact, positions
@@ -45,6 +47,7 @@ from sr_livo_tpu_torch.parallel.mesh import make_mesh
 from sr_livo_tpu_torch.parallel.sharded_lio import (PROFILE_STAGES,
                                                     ShardedLioEngine)
 from sr_livo_tpu_torch.runtime import scaling_bench as sb
+from sr_livo_tpu_torch.utils import graphs
 from tests.torch_threads import one_intraop_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -185,6 +188,25 @@ def test_replicated_remainder_matches_jax(jbench):
         assert gap < REPL_RTOL, (name, gap)
 
 
+def test_replicated_program_matches_jax(jbench):
+    """The remainder's program (what `time_replicated` replays), called
+    twice, in capture form, gives the function's bits and so stays within
+    REPL_RTOL of the script's `repl_only`."""
+    port, ref = replicated_pair(jbench)
+    js = jbench.build_sweeps(jbench.base_cfg(), n=1)[0]
+    peng = LioEngine(sb.base_cfg(), device="cpu")
+    programs = {}
+    with graphs.capture_form():
+        for _ in range(2):
+            got = sb.replicated_program(programs, peng, peng.init_state(),
+                                        _port_sweep(js))
+    (prog,) = programs.values()
+    assert prog.name == "replicated_remainder"
+    for name, a, b, c in zip(("p", "cov"), got, port, ref):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+        assert np.abs(b - c).max() / np.abs(c).max() < REPL_RTOL, name
+
+
 # ---------------------------------------------------------------------------
 # the per-shard proxies in lockstep
 # ---------------------------------------------------------------------------
@@ -230,8 +252,10 @@ def proxies(jbench):
             o = eng.step(convert.eskf_state_from_numpy(st),
                          convert.voxel_map_from_numpy(mp), _port_sweep(js),
                          fid)
+            # a copy: the state is the step program's buffers, which
+            # the next step overwrites
             steps.append(dict(
-                p=o.state.p.numpy(), success=bool(o.summary.success),
+                p=o.state.p.numpy().copy(), success=bool(o.summary.success),
                 num_residuals=int(o.summary.num_residuals),
                 iterations=int(o.summary.iterations),
                 frame_valid=o.frame_valid.numpy(),
@@ -269,17 +293,21 @@ def test_proxies_do_real_work(proxies):
 
 @pytest.mark.parametrize("name", sorted(PROXIES))
 def test_collectives_counted_equal_the_model(proxies, name):
-    """One steady sweep (frame id past the init frames) calls the
-    collectives `comm_model` counts, with the residual cap of base_cfg."""
+    """One steady sweep (frame id past the init frames) of the step
+    program, counted in capture form, calls the collectives `comm_model`
+    counts at the counted IEKF rounds (every masked round: max_iters + 1),
+    with the residual cap of base_cfg; the iterations it took are fewer."""
     px = proxies[name]
     eng = px["engine"]
     counted = sb.count_collectives(
         eng, px["state"], px["map"], px["sweep"],
         eng.cfg.odometry_options.init_num_frames)
+    rounds = counted.pop("psum_rounds")
     iters = counted.pop("iekf_iterations")
-    assert iters >= 1
+    assert rounds == eng.cfg.icp.num_iters_icp + 1
+    assert 1 <= iters <= rounds
     assert counted == sb.collectives_per_sweep(
-        iters, eng.cfg.icp.max_num_residuals > 0)
+        rounds, eng.cfg.icp.max_num_residuals > 0)
     assert "psum" not in vars(eng.mesh)            # the counters are gone
 
 
@@ -291,7 +319,8 @@ def test_collectives_without_the_residual_cap(proxies):
                            budget_override=sb.pershard_override(cfg, 8))
     counted = sb.count_collectives(eng, px["state"], px["map"], px["sweep"],
                                    cfg.odometry_options.init_num_frames)
-    assert counted.pop("psum") == 4 + counted.pop("iekf_iterations")
+    assert counted.pop("psum") == 4 + counted.pop("psum_rounds")
+    assert counted.pop("iekf_iterations") >= 1
     assert counted == {"all_to_all": 5, "all_gather": 0}
 
 

@@ -12,7 +12,9 @@ the ranks through `convert`.  The window is 8 keyframes of 256 points.
 The refined poses agree with JAX's to float32 round-off (the 6x6 blocks
 are sums over the routed rows in another order), the overflow counts
 agree in the normal and the starved case, and `compact` gives the same
-tables, dropped count and map size.
+tables, dropped count and map size.  `sharded_windowed_ba_program` in
+capture form gives the eager function's bits on every rank with the same
+collectives (a gloo mesh builds no program: it runs eagerly).
 """
 import jax
 import jax.numpy as jnp
@@ -168,3 +170,20 @@ def test_engine_compact_matches_jax(solved):
                                         for r in solved["ranks"]])
     for f, a in ref["map"].items():
         np.testing.assert_array_equal(got[f], a, err_msg=f)
+
+
+@pytest.mark.parametrize("case", range(len(BA_KW)), ids=["normal", "starved"])
+def test_sharded_ba_capture_form_gives_the_eager_bits(solved, case):
+    """Every rank: the BA program's function in capture form equals the
+    eager function bit for bit (its loop has no data-dependent round) and
+    calls per Gauss-Newton iteration one all-to-all and two psums, then
+    the overflow psum; over gloo no program was built."""
+    iters = BA_KW[case]["iters"]
+    for r in solved["ranks"]:
+        a, b = r["ba"][case], r["ba_capture"][case]
+        np.testing.assert_array_equal(a["q"], b["q"])
+        np.testing.assert_array_equal(a["t"], b["t"])
+        assert a["overflow"] == b["overflow"]
+        assert b["collectives"] == {"psum": 2 * iters + 1,
+                                    "all_to_all": iters, "all_gather": 0}
+        assert r["ba_programs"] == 0

@@ -16,11 +16,19 @@ with a GPU and no JAX:
     1e-6, the sign-free normal within 2e-3 and a2d within 2e-4 on rows
     with at least 8 neighbours.
   * One ShardedLioEngine run as a world of one over NCCL (so the
-    collectives really go through NCCL) against LioEngine on the same
-    sweeps: positions within 2e-3 m and quaternions within 1e-4
-    (tests/test_sharded_lio.py), the same success and owned map size, no
-    routing overflow, `knn_plane_assoc` launched once per IEKF update and
-    no plain kNN on the card.
+    collectives really go through NCCL, captured in the step program's
+    graph) against LioEngine on the same sweeps: positions within 2e-3 m
+    and quaternions within 1e-4 (tests/test_sharded_lio.py), the same
+    success and owned map size, no routing overflow, `knn_plane_assoc`
+    launched once per IEKF update (both counted by the replays'
+    registered counters, `plane_fit.launches` and `lio.counts`) and no
+    plain kNN on the card.
+  * Over an NCCL world of one, every step program's replay (init and
+    steady phases) equals its function run eagerly on copies of the same
+    state and sweep, bit for bit, and a steady sweep synchronizes nowhere
+    (`set_sync_debug_mode("error")`).
+  * Over a gloo world of one (`Mesh.capturable` false) the engine builds
+    no program and runs eagerly, its kernel launched once per update.
 """
 import os
 
@@ -30,7 +38,9 @@ import torch
 import torch.distributed as dist
 
 from sr_livo_tpu_torch.config import LivoConfig
-from sr_livo_tpu_torch.models.odometry import LioEngine, SweepInput
+from sr_livo_tpu_torch.models import lio
+from sr_livo_tpu_torch.models.odometry import (LioEngine, StepInputs,
+                                               SweepInput)
 from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.ops import voxel_map as vm
 from sr_livo_tpu_torch.parallel import sharded_lio
@@ -38,6 +48,7 @@ from sr_livo_tpu_torch.parallel.mesh import make_mesh
 from sr_livo_tpu_torch.parallel.routing import compact
 from sr_livo_tpu_torch.runtime import measurements as meas_mod
 from sr_livo_tpu_torch.runtime import synthetic
+from sr_livo_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.gpu
 
@@ -188,19 +199,15 @@ def test_world_of_one_over_nccl_matches_lio_engine(nccl_world_of_one,
     eng = sharded_lio.ShardedLioEngine(cfg, mesh)
     s1, m1 = single.init_state(), single.make_map()
     s2, m2 = eng.init_state(), eng.make_map()
-    updates = []
-    orig = eng._iekf
-
-    def counted(*args, **kw):
-        updates.append(1)
-        return orig(*args, **kw)
-    eng._iekf = counted
+    updates = 0
     for fid, sweep in enumerate(sweeps, start=1):
         o1 = single.step(s1, m1, sweep, fid)
         s1, m1 = o1.state, o1.voxel_map
         plane_fit.reset_launches()
+        before = lio.counts["updates"]
         o2 = eng.step(s2, m2, sweep, fid)
         launches = dict(plane_fit.launches)
+        updates += lio.counts["updates"] - before
         s2, m2 = o2.state, o2.voxel_map
         assert int(o2.route_overflow) == 0, fid
         assert int(eng.map_size(m2)) == int(vm.map_size(m1)), fid
@@ -211,5 +218,74 @@ def test_world_of_one_over_nccl_matches_lio_engine(nccl_world_of_one,
             o2.summary.num_residuals), fid
         assert launches["knn_plane_assoc"] == 1, (fid, launches)
         assert sum(launches.values()) == 1, (fid, launches)
-    assert len(updates) == len(sweeps)
+    assert updates == len(sweeps)
     assert not any(plain_knn), "the plain kNN ran on the card"
+    assert [p.name for p in eng.programs.values()] == [
+        "sharded_lio_step[init]", "sharded_map_size"]
+
+
+def _bits(t):
+    if t.is_floating_point():
+        return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t
+
+
+def test_nccl_step_program_replays_the_eager_bits(nccl_world_of_one):
+    """Init frames, then steady ones (frame ids past init_num_frames): each
+    replay against the step's function run eagerly on copies of the
+    state and sweep it was given; then a steady sweep with host
+    synchronizations made errors."""
+    mesh = nccl_world_of_one
+    cfg = _cfg()
+    sweeps = _sweeps(cfg, mesh.device)
+    eng = sharded_lio.ShardedLioEngine(cfg, mesh)
+    s, m = eng.init_state(), eng.make_map()
+    fids = [1, 2, 3, 4] + [21 + i for i in range(len(sweeps) - 4)]
+    for fid, sweep in zip(fids, sweeps):
+        state0 = graphs.tree_map(torch.clone, (s, m))
+        o = eng.step(s, m, sweep, fid)
+        with graphs.counts_kept():
+            (es, em), eo = eng.step_fn(eng.phase(fid))(
+                state0, StepInputs(graphs.tree_map(torch.clone, sweep), None))
+        got = graphs.tree_leaves((o.state, o.voxel_map,
+                                  o._replace(state=None, voxel_map=None)))
+        want = graphs.tree_leaves((es, em, eo))
+        assert len(got) == len(want)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(_bits(a), _bits(b)), (fid, i)
+        s, m = o.state, o.voxel_map
+    assert sorted(p.name for p in eng.programs.values()) == [
+        "sharded_lio_step[init]", "sharded_lio_step[steady]"]
+    assert all(p.nodes > 0 and p.replays for p in eng.programs.values())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step(s, m, sweeps[-1], fids[-1] + 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_gloo_mesh_builds_no_program(tmp_path):
+    """A gloo world of one on the card: no program, the step eager, the
+    kernel launched once per IEKF update."""
+    dev = torch.device("cuda", _cuda().index or 0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device=dev, group=dist.group.WORLD)
+        assert not mesh.capturable
+        cfg = _cfg()
+        eng = sharded_lio.ShardedLioEngine(cfg, mesh)
+        s, m = eng.init_state(), eng.make_map()
+        plane_fit.reset_launches()
+        before = lio.counts["updates"]
+        for fid, sweep in enumerate(_sweeps(cfg, dev, n=3), start=1):
+            o = eng.step(s, m, sweep, fid)
+            s, m = o.state, o.voxel_map
+        assert int(eng.map_size(m)) > 0
+        assert eng.programs == {}
+        assert (plane_fit.launches["knn_plane_assoc"]
+                == lio.counts["updates"] - before == 3)
+    finally:
+        dist.destroy_process_group()

@@ -14,7 +14,14 @@ tests/test_sharded_lio.py and 6 sweeps:
   * closed loop against the port's single-device LioEngine within the
     bars of tests/test_sharded_lio.py, with and without the residual cap;
   * starved budgets (`budget_override`): the overflow counts equal JAX's;
-  * every rank's replicated outputs are the same bits.
+  * every rank's replicated outputs are the same bits;
+  * the lockstep and closed-loop runs again with every step in capture
+    form (`graphs.capture_form()`: every masked IEKF round, as a CUDA
+    graph of the step records it): the eager runs' bits on every rank
+    and frame, and every rank calls the same collectives, which in
+    capture form are the model's at max_iters + 1 rounds;
+  * a gloo mesh is not capturable (`Mesh.capturable`): its engine builds
+    no program and runs eagerly; a world of one builds one per phase.
 """
 import warnings
 
@@ -32,6 +39,7 @@ from sr_livo_tpu_torch.models.odometry import LioEngine, SweepInput
 from sr_livo_tpu_torch.ops import voxel_map as tvm
 from sr_livo_tpu_torch.parallel import sharded_lio as tsl
 from sr_livo_tpu_torch.parallel.mesh import make_mesh
+from sr_livo_tpu_torch.runtime import scaling_bench as sb
 from tests.test_sharded_lio import _cfg as _jax_cfg
 from tests.test_sharded_lio import _sweeps
 from tests.torch_shard_worker import run_ranks
@@ -151,7 +159,12 @@ def runs(tmp_path_factory):
         dict(name="closed", cfg=_port_cfg(), lockstep=False, sweeps=sweeps,
              frame_ids=list(range(1, N_SWEEPS + 1))),
         dict(name="closed_cap", cfg=_port_cfg(CAP), lockstep=False,
-             sweeps=sweeps, frame_ids=list(range(1, N_SWEEPS + 1)))])
+             sweeps=sweeps, frame_ids=list(range(1, N_SWEEPS + 1))),
+        dict(_lockstep_run("lockstep", _port_cfg(), sweeps, *jax_lock[:2],
+                           r), name="lockstep_capture", capture_form=True),
+        dict(name="closed_cap_capture", cfg=_port_cfg(CAP), lockstep=False,
+             sweeps=sweeps, frame_ids=list(range(1, N_SWEEPS + 1)),
+             capture_form=True)])
         for r in range(N)]
     ranks = run_ranks("engine", N, tmp_path_factory.mktemp("sharded"), inputs)
     return dict(
@@ -178,7 +191,8 @@ def test_lockstep_step_matches_jax(runs, frame):
 
 
 @pytest.mark.parametrize("name", ["lockstep", "starved", "closed",
-                                  "closed_cap"])
+                                  "closed_cap", "lockstep_capture",
+                                  "closed_cap_capture"])
 def test_replicated_outputs_bit_identical_on_every_rank(runs, name):
     first = runs["ranks"][0][name]
     for rank in range(1, N):
@@ -215,6 +229,69 @@ def test_closed_loop_matches_single_chip(runs, name):
         assert capped >= 2, "the cap never engaged"
 
 
+RECORD_KEYS = ("record", "frame_pts_world", "frame_valid", "inserted")
+
+
+@pytest.mark.parametrize("eager,captured", [
+    ("lockstep", "lockstep_capture"), ("closed_cap", "closed_cap_capture")])
+def test_capture_form_gives_the_eager_bits(runs, eager, captured):
+    """Every rank, every frame: the step in capture form (masked rounds
+    past convergence) gives the eager step's state, outputs, overflow
+    and map size bit for bit."""
+    for rank in range(N):
+        for frame, (a, b) in enumerate(zip(runs["ranks"][rank][eager],
+                                           runs["ranks"][rank][captured])):
+            for k in RECORD_KEYS:
+                np.testing.assert_array_equal(a[k], b[k],
+                                              err_msg=f"{rank} {frame} {k}")
+            for k, v in a["state"].items():
+                np.testing.assert_array_equal(v, b["state"][k],
+                                              err_msg=f"{rank} {frame} {k}")
+            for k in ("success", "num_residuals", "iterations",
+                      "route_overflow", "map_size"):
+                assert a[k] == b[k], (rank, frame, k)
+
+
+@pytest.mark.parametrize("frame", range(N_SWEEPS))
+def test_capture_form_lockstep_matches_jax(runs, frame):
+    port = runs["ranks"][0]["lockstep_capture"][frame]
+    ref = runs["jax"][frame]
+    for k in ("success", "num_residuals", "iterations", "map_size"):
+        assert port[k] == ref[k], (frame, k, port[k], ref[k])
+    np.testing.assert_array_equal(port["inserted"], ref["inserted"])
+    assert np.abs(port["state"]["p"] - ref["p"]).max() < POS_TOL
+    assert np.abs(port["state"]["q"] - ref["q"]).max() < POS_TOL
+
+
+@pytest.mark.parametrize("name", ["lockstep", "closed_cap",
+                                  "lockstep_capture", "closed_cap_capture"])
+def test_every_rank_calls_the_same_collectives(runs, name):
+    """Per step, every rank calls the same collectives; in capture form
+    the IEKF runs all max_iters + 1 rounds (the init phase: 16), each
+    with its packed psum (and the cap's histogram psum), as the scaling
+    bench's model counts them; eagerly it stops where the iterations do."""
+    cfg = _port_cfg(CAP if name.startswith("closed_cap") else -1)
+    cap = cfg.icp.max_num_residuals > 0
+    rounds = max(15, cfg.icp.num_iters_icp) + 1
+    for frame in range(N_SWEEPS):
+        calls = [r[name][frame]["collectives"] for r in runs["ranks"]]
+        assert all(c == calls[0] for c in calls), (frame, calls)
+        iters = runs["ranks"][0][name][frame]["iterations"]
+        want = sb.collectives_per_sweep(
+            rounds if name.endswith("capture") else iters, cap)
+        want["psum"] -= 1        # no insert-gate psum: no insert budget
+        assert calls[0] == want, (frame, calls[0], want)
+
+
+def test_gloo_mesh_builds_no_program(runs):
+    """Over gloo (`Mesh.capturable` false) every step ran eagerly: the
+    engines built no program on any rank, in either form."""
+    for r in runs["ranks"]:
+        for name in ("lockstep", "closed", "lockstep_capture",
+                     "closed_cap_capture"):
+            assert r[name + ":programs"] == 0, name
+
+
 def test_starved_budgets_overflow_matches_jax(runs):
     port = runs["ranks"][0]["starved"]
     ovf = [s["route_overflow"] for s in port]
@@ -231,6 +308,7 @@ def test_world_of_one_matches_single_chip(runs):
     collectives): the engine matches the single-device one."""
     eng = tsl.ShardedLioEngine(_port_cfg(CAP), make_mesh(device="cpu"))
     assert eng.mesh.size == 1 and eng.mesh.group is None
+    assert eng.mesh.capturable
     s, m = eng.init_state(), eng.make_map()
     for fid, (sw, ref) in enumerate(zip(runs["sweeps"],
                                         runs["single"]["closed_cap"]),
@@ -240,6 +318,9 @@ def test_world_of_one_matches_single_chip(runs):
         assert int(o.summary.num_residuals) == ref["num_residuals"]
         assert int(eng.map_size(m)) == ref["map_size"]
         assert np.abs(s.p.numpy() - ref["p"]).max() < 1e-5
+    # a capturable mesh: the step and map_size are programs
+    assert sorted(p.name for p in eng.programs.values()) == [
+        "sharded_lio_step[init]", "sharded_map_size"]
 
 
 @pytest.mark.parametrize("stop_after", tsl.PROFILE_STAGES)

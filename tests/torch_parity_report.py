@@ -1032,6 +1032,9 @@ def sharded_rows():
     row("  ... frame_valid, inserted",
         [(p[k], r[k]) for p, r in zip(port, ref)
          for k in ("frame_valid", "inserted")])
+    row("  ... in capture form (every masked round; the step program's "
+        "function): positions", [(p["state"]["p"], r["p"]) for p, r in zip(
+            runs["ranks"][0]["lockstep_capture"], ref)])
     row("  ... starved budgets: route_overflow per sweep",
         [(np.array([p["route_overflow"] for p in runs["ranks"][0]["starved"]]),
           np.array([r["route_overflow"] for r in runs["jax_starved"]]))])
@@ -1048,6 +1051,9 @@ def sharded_rows():
         row(f"ba.make_sharded_windowed_ba, 4 ranks, {label} budgets "
             f"(overflow {p['overflow']} / {r['overflow']}): q, t",
             [(p["q"], r["q"]), (p["t"], r["t"])])
+        c = solved["ranks"][0]["ba_capture"][case]
+        row("  ... sharded_windowed_ba_program in capture form: q, t",
+            [(c["q"], r["q"]), (c["t"], r["t"])])
     got = convert.sharded_map_to_numpy([r["compact"]["map"]
                                         for r in solved["ranks"]])
     row("ShardedLioEngine.compact, 4 ranks: tables",

@@ -66,7 +66,29 @@ def run_ranks(task: str, world: int, workdir, inputs: List[dict],
 # ---------------------------------------------------------------------------
 
 def _np(t):
-    return t.detach().cpu().numpy()
+    # a copy: a step's state may be its program's buffers
+    return t.detach().cpu().numpy().copy()
+
+
+class _Counted:
+    """Within the block, counts each collective `mesh` calls."""
+
+    NAMES = ("psum", "all_to_all", "all_gather")
+
+    def __init__(self, mesh):
+        self.mesh, self.calls = mesh, dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        for name in self.NAMES:
+            def call(t, _fn=getattr(self.mesh, name), _name=name):
+                self.calls[_name] += 1
+                return _fn(t)
+            setattr(self.mesh, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            delattr(self.mesh, name)
 
 
 def _sweep(d):
@@ -92,56 +114,75 @@ def _step_record(eng, out) -> dict:
 def task_engine(inputs, rank, world) -> dict:
     """ShardedLioEngine runs.  Each run is lockstep (the given per-step
     state and this rank's map slice before every step) or closed loop
-    (from init_state and an empty map)."""
+    (from init_state and an empty map); with `capture_form` every step
+    runs as a program's capture records it (`graphs.capture_form()`).
+    Each step's record holds the collectives the step called; each run
+    records the programs its engine built (`programs`: none over gloo)."""
+    import contextlib
+
     from sr_livo_tpu_torch import convert
     from sr_livo_tpu_torch.parallel.mesh import make_mesh
     from sr_livo_tpu_torch.parallel.sharded_lio import ShardedLioEngine
+    from sr_livo_tpu_torch.utils import graphs
     mesh = make_mesh(world, device="cpu")
     out = {}
     for run in inputs["runs"]:
         eng = ShardedLioEngine(run["cfg"], mesh,
                                budget_override=run.get("budget_override"))
+        form = (graphs.capture_form if run.get("capture_form")
+                else contextlib.nullcontext)
         steps = []
-        if run["lockstep"]:
-            for sw, fid, st, mp in zip(run["sweeps"], run["frame_ids"],
-                                       run["states"], run["maps"]):
-                o = eng.step(convert.eskf_state_from_numpy(st),
-                             convert.voxel_map_from_numpy(mp), _sweep(sw),
-                             fid)
-                steps.append(_step_record(eng, o))
-        else:
-            state, vmap = eng.init_state(), eng.make_map()
-            for sw, fid in zip(run["sweeps"], run["frame_ids"]):
+        state, vmap = eng.init_state(), eng.make_map()
+        for i, (sw, fid) in enumerate(zip(run["sweeps"], run["frame_ids"])):
+            if run["lockstep"]:
+                state = convert.eskf_state_from_numpy(run["states"][i])
+                vmap = convert.voxel_map_from_numpy(run["maps"][i])
+            with _Counted(mesh) as counted, form():
                 o = eng.step(state, vmap, _sweep(sw), fid)
-                steps.append(_step_record(eng, o))
-                state, vmap = o.state, o.voxel_map
+            steps.append(dict(_step_record(eng, o),
+                              collectives=dict(counted.calls)))
+            state, vmap = o.state, o.voxel_map
         out[run["name"]] = steps
+        out[run["name"] + ":programs"] = len(eng.programs)
     return out
 
 
 def task_ba(inputs, rank, world) -> dict:
     """make_sharded_windowed_ba on this rank's map slice for each set of
-    keywords, then ShardedLioEngine.compact of the same map."""
+    keywords, eagerly and (`ba_capture`) as `sharded_windowed_ba_program`
+    in capture form with its collectives counted, then
+    ShardedLioEngine.compact of the same map."""
     from sr_livo_tpu_torch import convert
     from sr_livo_tpu_torch.parallel import ba
     from sr_livo_tpu_torch.parallel.mesh import make_mesh
     from sr_livo_tpu_torch.parallel.sharded_lio import ShardedLioEngine
+    from sr_livo_tpu_torch.utils import graphs
     mesh = make_mesh(world, device="cpu")
     window = convert.keyframe_window_from_numpy(inputs["window"])
     q_odo = torch.as_tensor(inputs["q_odo"])
     t_odo = torch.as_tensor(inputs["t_odo"])
-    out = {"ba": []}
+    out = {"ba": [], "ba_capture": []}
+    programs = {}
     for kw in inputs["ba_kwargs"]:
         fn = ba.make_sharded_windowed_ba(mesh, window.q.shape[0], **kw)
         q, t, ovf = fn(convert.voxel_map_from_numpy(inputs["map"]), window,
                        q_odo, t_odo)
         out["ba"].append(dict(q=_np(q), t=_np(t), overflow=int(ovf)))
+        with _Counted(mesh) as counted, graphs.capture_form():
+            q, t, ovf = ba.sharded_windowed_ba_program(
+                programs, mesh, convert.voxel_map_from_numpy(inputs["map"]),
+                window, q_odo, t_odo, **kw)
+        out["ba_capture"].append(dict(q=_np(q), t=_np(t),
+                                      overflow=int(ovf),
+                                      collectives=dict(counted.calls)))
+    out["ba_programs"] = len(programs)
     eng = ShardedLioEngine(inputs["cfg"], mesh)
     vmap = convert.voxel_map_from_numpy(inputs["map"])
+    before = int(eng.map_size(vmap))
     m2, dropped = eng.compact(vmap, inputs["location"])
     out["compact"] = dict(dropped=int(dropped), map_size=int(eng.map_size(m2)),
                           map=convert.voxel_map_to_numpy(m2),
-                          map_size_before=int(eng.map_size(vmap)))
+                          map_size_before=before)
     return out
 
 
