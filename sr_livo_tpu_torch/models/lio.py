@@ -45,6 +45,12 @@ class IekfSummary(NamedTuple):
 # the capture holds, on each replay: every masked round, and the
 # weak-solve retry's update whether or not it is taken.
 counts = graphs.register_counter({"updates": 0, "iterations": 0})
+# The rounds among those whose flag was up (the rounds that did work), on
+# the device: counted in programs captured with stage events on
+# (`graphs.DeviceCount`), the step's init phase left out.  Against the
+# rounds it counted (`active_rounds.added()`), the share of masked rounds
+# that were not dead.
+active_rounds = graphs.register_device_count(graphs.DeviceCount())
 
 
 def _lam(weight_alpha: float, weight_neighborhood: float):
@@ -330,6 +336,7 @@ def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
         if not graphs.go_on(go):
             break
         counts["iterations"] += 1
+        active_rounds.add(go)
         s = unpack_state(x)
         hth, hth_h, num = normal_equations(s, go)
         s_new, cf_new, flags = iekf_iteration(

@@ -16,6 +16,7 @@ the host.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -215,17 +216,20 @@ def _sweep_core(state: EskfState, voxel_map: vm.VoxelMap, sweep: SweepInput,
             query_chunk=sh.query_chunk, active=active)
 
     graphs.mark("iekf")
-    state_upd, summary = _update(nb_voxels)
-    if cfg.retry_wider_neighborhood:
-        # Failure/weak-solve recovery: re-run once over the widened
-        # neighbourhood when the update failed OR solved on fewer than
-        # `min_num_residuals` rows (the JAX package's `lax.cond`,
-        # sr_livo_tpu/models/odometry.py:237).
-        weak = ~(summary.success
-                 & (summary.num_residuals >= icp.min_num_residuals))
-        state_upd, summary = graphs.cond(
-            weak, lambda active: _update(nb_voxels + 1, active),
-            (state_upd, summary))
+    # the IEKF's device counts (lio.active_rounds) leave the init phase
+    # out: its rounds are not those of the steady step
+    with graphs.counting(False) if is_init else contextlib.nullcontext():
+        state_upd, summary = _update(nb_voxels)
+        if cfg.retry_wider_neighborhood:
+            # Failure/weak-solve recovery: re-run once over the widened
+            # neighbourhood when the update failed OR solved on fewer than
+            # `min_num_residuals` rows (the JAX package's `lax.cond`,
+            # sr_livo_tpu/models/odometry.py:237).
+            weak = ~(summary.success
+                     & (summary.num_residuals >= icp.min_num_residuals))
+            state_upd, summary = graphs.cond(
+                weak, lambda active: _update(nb_voxels + 1, active),
+                (state_upd, summary))
 
     state_new = eskf_mod.map_state(
         lambda a, b: torch.where(sweep.do_optimize, a, b),

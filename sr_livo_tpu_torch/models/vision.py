@@ -19,8 +19,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from torch.profiler import record_function
-
 from sr_livo_tpu_torch.config import LivoConfig
 from sr_livo_tpu_torch.models import camera as cam_mod
 from sr_livo_tpu_torch.ops import color_map as cm
@@ -312,7 +310,7 @@ class VisionModule:
         # vis_step = vis_insert + vis_track (each stage waits for its
         # device work when the timers synchronize)
         with timers.stage("vis_step"):
-            with timers.stage("vis_insert"):
+            with timers.stage("vis_insert"), timers.on_device():
                 self._gated_insert(sweep_out.frame_pts_world,
                                    sweep_out.frame_valid,
                                    sweep_out.summary.success, obs_time)
@@ -320,21 +318,23 @@ class VisionModule:
             with timers.stage("vis_track"):
                 # preprocess + pyramid + vision step: one program
                 stats_vec = self._run_frame_program(
-                    host_img, q_wi, t_wi, dt, obs_time)
+                    host_img, q_wi, t_wi, dt, obs_time, timers)
                 timers.synchronize()
         # a copy: the program's output is overwritten by its next call
         self._stats_pending.append((float(obs_time), stats_vec.clone()))
         self.prev_time = obs_time
 
     def _run_frame_program(self, host_img, q_wi, t_wi, dt: float,
-                           obs_time: float) -> torch.Tensor:
+                           obs_time: float, timers) -> torch.Tensor:
         """The frame program over this frame's inputs; returns its stats
         output.  The inputs are copied (or, for the two times, filled)
         into the program's buffers, the RANSAC noise drawn outside it, so
         that the generator's stream is the eager one's and no host value
-        is baked into the graph."""
+        is baked into the graph.  Stages `noise`, `refill` and `replay`
+        of `timers` (a `StageTimers`)."""
         img_u8, remapped = self._upload(host_img)
-        noise_f, noise_pnp = self._noise()
+        with timers.stage("noise"), timers.on_device():
+            noise_f, noise_pnp = self._noise()
         state = FrameState(self.camera, self.color_map, self.tracks,
                            self.prev_pyr)
         prog = self.programs.get(remapped)
@@ -353,14 +353,16 @@ class VisionModule:
                 state, graphs.tree_map(torch.clone, inputs),
                 name=f"vision_frame[remapped={remapped}]")
         else:
-            graphs.refill(prog.state, state)
-            inp = prog.inputs
-            inp.dt.fill_(dt)
-            inp.obs_time.fill_(obs_time)
-            graphs.refill(inp, FrameInputs(
-                img_u8, q_wi, t_wi, inp.dt, inp.obs_time,
-                self.n_new_visited, noise_f, noise_pnp))
-        stats_vec = prog()
+            with timers.stage("refill"), timers.on_device():
+                graphs.refill(prog.state, state)
+                inp = prog.inputs
+                inp.dt.fill_(dt)
+                inp.obs_time.fill_(obs_time)
+                graphs.refill(inp, FrameInputs(
+                    img_u8, q_wi, t_wi, inp.dt, inp.obs_time,
+                    self.n_new_visited, noise_f, noise_pnp))
+        with timers.stage("replay"), timers.on_device():
+            stats_vec = prog()
         self.camera, self.color_map, self.tracks, self.prev_pyr = prog.state
         return stats_vec
 
@@ -374,8 +376,12 @@ class VisionModule:
         vision step (`_vision_step_core`).  The colored-map insert that
         opens the JAX program is a program of its own here
         (`_gated_insert`); its `n_new_visited` comes in `inputs`.  Returns
-        (FrameState, stats (8,) int64); reads nothing back to the host."""
+        (FrameState, stats (8,) int64); reads nothing back to the host.
+        With stage events, its marks split the graph's device time into
+        `preprocess`, `pyramid` and `vision_step`'s ranges."""
+        graphs.mark("preprocess")
         rgb, gray = self._preprocess_dev(inputs.img_u8, remapped)
+        graphs.mark("pyramid")
         cur_pyr = lk.precompute_frame(gray, self.lk_params.levels)
         camera, color_map, tracks, stats = vision_step(
             state.camera, state.color_map, state.tracks, state.prev_pyr,
@@ -445,12 +451,16 @@ def vision_step(camera, color_map, tracks, prev_pyr, cur_pyr, rgb_img,
     the RANSAC gates, both camera ESIKFs, rendering and track upkeep.
     `dt`, `obs_time` are 0-d float tensors; `noise_f` (128, M) and
     `noise_pnp` (64, M) are the gates' Gumbel draws.  Returns
-    (camera, color_map, tracks, stats (8,) int64)."""
+    (camera, color_map, tracks, stats (8,) int64).  Its `graphs.mark`s
+    name the stages a program captured with stage events times: `lk`,
+    `f_ransac` (with the FoV gate), `pnp_ransac`, `vio_esikf`,
+    `vio_photometric`, `render`, `tracks`."""
     registry = color_map.reg.shape[0]
     prev_imgs, prev_dx, prev_dy = prev_pyr
     cur_imgs, _, _ = cur_pyr
 
     # ---- 1. LK tracking (trackImage, opticalFlowTracker.cpp:111-186) ----
+    graphs.mark("lk")
     n_active = torch.sum(tracks.active)
     track_ok_gate = n_active >= 30
     ids_c = torch.clamp(tracks.reg_id.to(torch.int64), 0, registry - 1)
@@ -472,17 +482,16 @@ def vision_step(camera, color_map, tracks, prev_pyr, cur_pyr, rgb_img,
     seed = torch.where(geo_ok[:, None], seed_geo,
                        torch.where(vel_ok[:, None], seed_vel,
                                    torch.zeros_like(seed_vel)))
-    with record_function("vision.lk"):
-        cur_px, status = lk.track_pyramidal(
-            prev_imgs, cur_imgs, prev_dx, prev_dy, tracks.px, tracks.active,
-            lk_params, init_flow=seed)
+    cur_px, status = lk.track_pyramidal(
+        prev_imgs, cur_imgs, prev_dx, prev_dy, tracks.px, tracks.active,
+        lk_params, init_flow=seed)
     status = status & tracks.active & track_ok_gate
     lk_ok = status
 
     # ---- 2. fundamental RANSAC gate (:144) ----
-    with record_function("vision.f_ransac"):
-        f_inl = ransac.fundamental_ransac(tracks.px, cur_px, status,
-                                          noise_f, threshold=fm_px)
+    graphs.mark("f_ransac")
+    f_inl = ransac.fundamental_ransac(tracks.px, cur_px, status, noise_f,
+                                      threshold=fm_px)
     status = status & f_inl
     fr_ok = status
 
@@ -497,41 +506,40 @@ def vision_step(camera, color_map, tracks, prev_pyr, cur_pyr, rgb_img,
         color_map.reg, torch.where(status, ids_c, registry), reg_rows))
 
     # ---- 4. PnP RANSAC outlier gate (removeOutlierUsingRansacPnp) ----
-    with record_function("vision.pnp_ransac"):
-        pnp_inl, _q, _t = ransac.pnp_ransac(
-            pts_world, cur_px, status, q_cw0, t_cw0, camera.intr, noise_pnp,
-            threshold=pnp_px)
+    graphs.mark("pnp_ransac")
+    pnp_inl, _q, _t = ransac.pnp_ransac(
+        pts_world, cur_px, status, q_cw0, t_cw0, camera.intr, noise_pnp,
+        threshold=pnp_px)
     status = status & pnp_inl
     enough = torch.sum(status) >= cam_mod.MIN_ITERATION_POINTS
 
     # ---- 5. 11-dof reprojection ESIKF ----
+    graphs.mark("vio_esikf")
     img_vel_pts = reg_rows[:, cm.C_VEL]
-    with record_function("vision.vio_esikf"):
-        camera, _ok1 = cam_mod.vio_esikf(
-            camera, q_wi, t_wi, pts_world, cur_px, img_vel_pts,
-            status & enough, n_new_visited)
+    camera, _ok1 = cam_mod.vio_esikf(
+        camera, q_wi, t_wi, pts_world, cur_px, img_vel_pts, status & enough,
+        n_new_visited)
 
     # ---- 6. 6-dof photometric ESIKF ----
-    with record_function("vision.vio_photometric"):
-        camera, _ok2 = cam_mod.vio_photometric(
-            camera, q_wi, t_wi, rgb_img, pts_world,
-            reg_rows[:, cm.C_RGB], reg_rows[:, cm.C_COV],
-            reg_rows[:, cm.C_NRGB], img_vel_pts, status & enough,
-            n_new_visited)
+    graphs.mark("vio_photometric")
+    camera, _ok2 = cam_mod.vio_photometric(
+        camera, q_wi, t_wi, rgb_img, pts_world, reg_rows[:, cm.C_RGB],
+        reg_rows[:, cm.C_COV], reg_rows[:, cm.C_NRGB], img_vel_pts,
+        status & enough, n_new_visited)
 
     # ---- 7. render recent voxels with the refined pose ----
+    graphs.mark("render")
     _, t_wc, q_cw, t_cw = cam_mod.world_camera_pose(camera, q_wi, t_wi)
-    with record_function("vision.render"):
-        color_map = cm.render_recent(
-            color_map, rgb_img, q_cw, t_cw, t_wc, camera.intr, obs_time,
-            cols=cols, rows=rows, max_render_points=max_render_points)
+    color_map = cm.render_recent(
+        color_map, rgb_img, q_cw, t_cw, t_wc, camera.intr, obs_time,
+        cols=cols, rows=rows, max_render_points=max_render_points)
 
     # ---- 8. track maintenance (updateAndAppendTrackPoints, :13-102) ----
-    with record_function("vision.tracks"):
-        color_map, tracks_new, keep, use_cand = _maintain_tracks(
-            color_map, tracks, camera, status, reg_rows, ids_c, pts_world,
-            cur_px, q_cw, t_cw, t_wc, cols=cols, rows=rows,
-            track_grid=track_grid)
+    graphs.mark("tracks")
+    color_map, tracks_new, keep, use_cand = _maintain_tracks(
+        color_map, tracks, camera, status, reg_rows, ids_c, pts_world,
+        cur_px, q_cw, t_cw, t_wc, cols=cols, rows=rows,
+        track_grid=track_grid)
 
     # per-frame stats: [0] LK+gates survivors, [1] kept tracks; [2:]
     # per-stage survivor counts (active-in, post-LK, post-F-RANSAC,

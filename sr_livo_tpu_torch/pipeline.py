@@ -17,6 +17,7 @@ import dataclasses
 import os
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -120,10 +121,11 @@ class LivoPipeline:
         """Drain the cutter; returns the number of frames processed."""
         n = 0
         while True:
+            t_cut = time.perf_counter_ns()
             meas = self.cutter.get()
             if meas is None:
                 return n
-            self._process_measurement(meas)
+            self._process_measurement(meas, t_cut)
             n += 1
 
     def process_measurements(self, meas_list, pipelined: bool = True,
@@ -146,7 +148,8 @@ class LivoPipeline:
         def _feed():
             try:
                 for j, m in enumerate(meas_list[i:]):
-                    q.put(self._host_prepare_measurement(m, start + j))
+                    with self.timers.for_frame(start + j):
+                        q.put(self._host_prepare_measurement(m, start + j))
             except BaseException as e:  # surfaced on the main thread
                 err.append(e)
             finally:
@@ -159,18 +162,23 @@ class LivoPipeline:
             pf = q.get()
             if pf is None:
                 break
-            self._dispatch_prepared(pf)
+            with self.timers.frame_span(pf[1]):
+                self._dispatch_prepared(pf)
             n += 1
         th.join()
         if err:
             raise err[0]
         return n
 
-    def _process_measurement(self, meas: meas_mod.Measurement):
+    def _process_measurement(self, meas: meas_mod.Measurement,
+                             t_cut: Optional[int] = None):
+        """One measurement; a frame once the filter is initialized (span
+        `frame`, from `t_cut`, the `perf_counter_ns()` before its cut)."""
         if not self._init_or_skip(meas):
             return
-        self._dispatch_prepared(
-            self._host_prepare_measurement(meas, self.index_frame))
+        with self.timers.frame_span(self.index_frame, cut_start=t_cut):
+            self._dispatch_prepared(
+                self._host_prepare_measurement(meas, self.index_frame))
 
     def _init_or_skip(self, meas: meas_mod.Measurement) -> bool:
         """Static-init bookkeeping; returns True once sweeps should flow
@@ -218,26 +226,29 @@ class LivoPipeline:
             meta = np.array([wire.scale, wire.duration,
                              1.0 if frame_index > 1 else 0.0, thr],
                             np.float32)
-            sweep = WireSweep(pts_q=up(wire.pts_q), imu=up(imu_pack),
-                              meta=up(meta))
+            with self.timers.stage("upload"), self.timers.on_device():
+                sweep = WireSweep(pts_q=up(wire.pts_q), imu=up(imu_pack),
+                                  meta=up(meta))
         else:
             with self.timers.stage("prepare_sweep"):
                 prep = meas_mod.prepare_sweep(meas, self.current_time,
                                               self.cfg)
             self.current_time = prep.new_current_time
-            sweep = SweepInput(
-                raw_pts=up(prep.raw_pts), t_rel=up(prep.t_rel),
-                pt_valid=up(prep.pt_valid), imu_t=up(prep.imu_t),
-                imu_dt=up(prep.imu_dt), imu_acc=up(prep.imu_acc),
-                imu_gyr=up(prep.imu_gyr), imu_valid=up(prep.imu_valid),
-                do_optimize=up(np.asarray(frame_index > 1)),
-                threshold_capacity=up(np.int32(thr)))
+            with self.timers.stage("upload"), self.timers.on_device():
+                sweep = SweepInput(
+                    raw_pts=up(prep.raw_pts), t_rel=up(prep.t_rel),
+                    pt_valid=up(prep.pt_valid), imu_t=up(prep.imu_t),
+                    imu_dt=up(prep.imu_dt), imu_acc=up(prep.imu_acc),
+                    imu_gyr=up(prep.imu_gyr), imu_valid=up(prep.imu_valid),
+                    do_optimize=up(np.asarray(frame_index > 1)),
+                    threshold_capacity=up(np.int32(thr)))
         host_img = None
         if (self.vision is not None and meas.rendering
                 and meas.image is not None):
             with self.timers.stage("vis_host_prep"):
                 img_u8, remapped = self.vision._host_prepare(meas.image)
-                host_img = (up(img_u8), remapped)
+                with self.timers.stage("upload"), self.timers.on_device():
+                    host_img = (up(img_u8), remapped)
         return (meas, frame_index, sweep, host_img)
 
     def _adaptive_gyr_rate(self, meas: meas_mod.Measurement) -> float:
@@ -279,7 +290,7 @@ class LivoPipeline:
         gyr_rate = 0.0
         if self.cfg.adaptive_keypoint_density and meas.imu:
             gyr_rate = self._adaptive_gyr_rate(meas)
-        with self.timers.stage("lio_step"):
+        with self.timers.stage("lio_step"), self.timers.on_device():
             # one program replay on the card (LioEngine.step); its state,
             # map and outputs are overwritten by the next step, so what
             # outlives this sweep is copied below
@@ -310,7 +321,7 @@ class LivoPipeline:
             # lioOptimization.cpp:556-572): a fresh table of the near
             # voxels, one program replay that writes it into the map's
             # buffers.  The dropped count stays on the device.
-            with self.timers.stage("evict"):
+            with self.timers.stage("evict"), self.timers.on_device():
                 self.voxel_map, self._evict_dropped = vm.compact_map_program(
                     self.programs, self.voxel_map, self.state.p,
                     distance=self.cfg.odometry_options.max_distance,
@@ -327,14 +338,15 @@ class LivoPipeline:
             else:
                 # colored-map leg of addPointsToMap (every sweep,
                 # lioOptimization.cpp:538-539)
-                with self.timers.stage("color_insert"):
+                with self.timers.stage("color_insert"), \
+                        self.timers.on_device():
                     self.vision.insert_sweep_points(
                         out.frame_pts_world, out.frame_valid,
                         out.summary.success, meas.time_image)
                     self.timers.synchronize()
 
         if self.backend is not None:
-            with self.timers.stage("backend"):
+            with self.timers.stage("backend"), self.timers.on_device():
                 self.backend.maybe_add_keyframe(self, out, meas)
                 self.timers.synchronize()
 
@@ -411,8 +423,11 @@ class LivoPipeline:
     @property
     def records(self) -> List[FrameRecord]:
         if self._pending_records:
-            self._records.extend(_records_from_rows(
-                self._pending_records, self._rows(self._pending_records)))
+            # the host waits here for the frames' device work
+            with self.timers.stage("records"), self.timers.on_device():
+                self._records.extend(_records_from_rows(
+                    self._pending_records,
+                    self._rows(self._pending_records)))
             self._pending_records = []
         return self._records
 

@@ -10,7 +10,10 @@ pipeline on `--device` (default cuda; cpu runs the plain PyTorch path),
 writes pose.txt/velocity.txt/bias.txt, and prints per-run stats + ATE
 RMSE against the exact simulator ground truth.  Exits 1 at an ATE of
 0.10 m or more.  With LIVO_TRACE_DIR set, the run is traced with
-torch.profiler into $LIVO_TRACE_DIR/demo/.
+torch.profiler into $LIVO_TRACE_DIR/demo/, and the pipeline's spans
+(`utils.profiling.StageTimers`: host spans and the device intervals of
+their work on one clock) are written beside it as a Chrome trace,
+spans-<ns>.json.
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ def main(argv=None):
         stream = StreamPublisher(args.stream)
     pipe = LivoPipeline(cfg, vision=vision, stream=stream, device=device)
     t0 = time.time()
-    with trace_if_enabled("demo"):
+    with trace_if_enabled("demo", timers=pipe.timers):
         run_streams(pipe, sim)
     if stream is not None:
         stream.close()

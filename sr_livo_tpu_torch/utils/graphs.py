@@ -65,6 +65,9 @@ launches (`plane_fit.launches`), and a replay runs no Python.  So the
 increments of every registered counter during capture are recorded,
 taken back (a capture launches nothing) and added again on each replay.
 The warm-up's launches are taken back too: they are not the path's.
+A count that depends on device values (the IEKF rounds that did work)
+is a `DeviceCount`, added to on the device with no host read, in
+programs captured with stage events on only.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ import ctypes
 import functools
 import threading
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
@@ -151,13 +154,103 @@ def cond(pred: torch.Tensor, true_fn: Callable, false_value):
 
 # In-graph stage events: with `stage_events(True)` when a program is
 # captured, each `mark(name)` in its function records a timing event in
-# the graph, and `Program.stage_ms()` reads the device time between them.
-_MARKS = {"on": False, "into": None}
+# the graph, and `Program.stage_ms()` reads the device time between them
+# in its last replay (with a wait), `stage_log()` in every replay (none);
+# each `DeviceCount.add` in it adds to a count on the device, again on
+# every replay.  "count" is whether `add` counts here.
+_MARKS = {"on": False, "into": None, "count": False}
+_DEVICE_COUNTS: List["DeviceCount"] = []
+
+
+# (program name, {stage: device ms}) of each replay of a program captured
+# with stage events, in replay order, once its events completed; and the
+# replays not read yet, (name, marks), oldest first.
+_STAGE_LOG: List[Tuple[str, Dict[str, float]]] = []
+_UNREAD: List[tuple] = []
+
+
+def _elapsed(marks: list) -> Dict[str, float]:
+    return {name: a.elapsed_time(b) for (name, a), (_, b)
+            in zip(marks[:-1], marks[1:])}
+
+
+def _read_replays() -> None:
+    """Log the unread replays whose events have completed (`query()`:
+    never waits).  The stream runs them in order, so the first one still
+    running ends the read."""
+    while _UNREAD and _UNREAD[0][1][-1][1].query():
+        name, marks = _UNREAD.pop(0)
+        _STAGE_LOG.append((name, _elapsed(marks)))
+
+
+def stage_log() -> List[Tuple[str, Dict[str, float]]]:
+    """(program name, device ms of each marked stage) of every replay so
+    far of a program captured with stage events, oldest first, up to the
+    last whose work has completed: each replay is read at its program's
+    next call or here, never with a wait.  A replay still running when its
+    program is called again is left out (its events are recorded anew)."""
+    _read_replays()
+    return _STAGE_LOG
 
 
 def stage_events(on: bool) -> None:
-    """Whether programs captured from now on record their `mark`s."""
+    """Whether programs captured from now on record their `mark`s and
+    device counts (and whether a program's call on the CPU counts)."""
     _MARKS["on"] = bool(on)
+
+
+@contextlib.contextmanager
+def counting(on: bool = True):
+    """Within the block, `DeviceCount.add` counts (as in the capture of a
+    program with stage events on: for eager runs and tests), or with
+    `on=False` does not (work a count leaves out)."""
+    before = _MARKS["count"]
+    _MARKS["count"] = on
+    try:
+        yield
+    finally:
+        _MARKS["count"] = before
+
+
+class DeviceCount:
+    """An int32 count on each device that code adds device values to,
+    with no host read: `add` counts only where `counting` holds (the
+    capture of a program with stage events on, whose replays then add
+    again; a program's call on the CPU with them on; a `counting()`
+    block), so an untraced program's graph holds no add.  `added()` is
+    the number of adds that counted, a launch counter (a replay adds its
+    capture's).  The buffers are made outside any capture: a `Program`
+    makes its device's before it captures (`register_device_count`)."""
+
+    def __init__(self):
+        self._bufs: Dict[torch.device, torch.Tensor] = {}
+        self._added = register_counter({"adds": 0})
+
+    def buffer(self, device: torch.device) -> torch.Tensor:
+        buf = self._bufs.get(device)
+        if buf is None:
+            buf = self._bufs[device] = torch.zeros(1, dtype=torch.int32,
+                                                   device=device)
+        return buf
+
+    def add(self, value: torch.Tensor) -> None:
+        """Add `value` (a 0-d bool or integer tensor) where it counts."""
+        if _MARKS["count"]:
+            self.buffer(value.device).add_(value.reshape(1))
+            self._added["adds"] += 1
+
+    def read(self) -> int:
+        """The count over every device (waits for each)."""
+        return sum(int(b.item()) for b in self._bufs.values())
+
+    def added(self) -> int:
+        """How many adds counted (on the host; no wait)."""
+        return self._added["adds"]
+
+
+def register_device_count(count: DeviceCount) -> DeviceCount:
+    _DEVICE_COUNTS.append(count)
+    return count
 
 
 def mark(name: str) -> None:
@@ -286,10 +379,18 @@ class Program:
 
     def __call__(self):
         if self.device.type != "cuda":
-            return self.body()
+            if not _MARKS["on"]:
+                return self.body()
+            with counting():
+                return self.body()
         if self.graph is None:
             self._capture()
+        elif self.marks:
+            _read_replays()
+            _UNREAD[:] = [u for u in _UNREAD if u[1] is not self.marks]
         self.graph.replay()
+        if self.marks:
+            _UNREAD.append((self.name, self.marks))
         for counter, delta in zip(_COUNTERS, self._delta):
             for k, v in delta.items():
                 counter[k] = counter.get(k, 0) + v
@@ -303,26 +404,32 @@ class Program:
         if not self.marks:
             return {}
         self.marks[-1][1].synchronize()
-        return {name: a.elapsed_time(b) for (name, a), (_, b)
-                in zip(self.marks[:-1], self.marks[1:])}
+        return _elapsed(self.marks)
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
         before = _snapshot()
+        if _MARKS["on"]:
+            for count in _DEVICE_COUNTS:
+                count.buffer(self.device)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         marks = []
+        counted = _MARKS["count"]
         try:
             with torch.cuda.stream(side), capture_form():
-                # warm-up on a copy of the state, results dropped
+                # warm-up on a copy of the state, results dropped (and not
+                # counted)
+                _MARKS["count"] = False
                 self.fn(tree_map(torch.clone, self.state), self.inputs)
                 _restore(before)
                 # "thread_local": the pipeline's feeder thread may upload
                 # the next frame meanwhile; a private pool (pool=None)
                 graph.capture_begin(capture_error_mode="thread_local")
                 _MARKS["into"] = marks if _MARKS["on"] else None
+                _MARKS["count"] = _MARKS["on"]
                 try:
                     outputs = self.body()
                     mark("end")
@@ -334,6 +441,7 @@ class Program:
                 graph.capture_end()
             after = _snapshot()
         finally:
+            _MARKS["count"] = counted
             _restore(before)
             cur.wait_stream(side)
         graph.instantiate()

@@ -1,7 +1,9 @@
 """The port's demo CLI (python -m sr_livo_tpu_torch.runtime.demo), its
 parameter dump (`LivoPipeline.record_parameters`, the JAX package's text)
 and its profiling helpers (`trace_if_enabled` writes a trace only when
-LIVO_TRACE_DIR is set; `StageTimers.time_stage`)."""
+LIVO_TRACE_DIR is set, with the spans of the timers it is given;
+`StageTimers.time_stage`)."""
+import json
 import os
 import types
 
@@ -53,22 +55,36 @@ def test_record_parameters_matches_jax(tmp_path, profile):
     assert got.startswith("[odometry_options]\n") and "[shapes]\n" in got
 
 
-def _traced(tag):
-    with trace_if_enabled(tag):
-        x = torch.arange(64.0).reshape(8, 8)
-        return float((x @ x).sum())
+def _traced(tag, timers=None):
+    with trace_if_enabled(tag, timers=timers):
+        with (timers or StageTimers()).frame_span(1):
+            x = torch.arange(64.0).reshape(8, 8)
+            return float((x @ x).sum())
 
 
 def test_trace_if_enabled_writes_only_when_set(tmp_path, monkeypatch):
     monkeypatch.delenv("LIVO_TRACE_DIR", raising=False)
     monkeypatch.chdir(tmp_path)
-    assert _traced("off") == _traced("off")
-    assert list(tmp_path.iterdir()) == []
+    off = StageTimers()
+    assert _traced("off", off) == _traced("off")
+    assert list(tmp_path.iterdir()) == [] and off.spans is None
     monkeypatch.setenv("LIVO_TRACE_DIR", str(tmp_path / "traces"))
     _traced("on")
     files = list((tmp_path / "traces" / "on").iterdir())
     assert len(files) == 1 and files[0].suffix == ".json"
     assert "traceEvents" in files[0].read_text()
+    # with the pipeline's timers, their spans beside the profiler's trace,
+    # and spans off again after the region (unless they were on before)
+    timers, on = StageTimers(), StageTimers(spans=True)
+    _traced("spans", timers)
+    _traced("kept", on)
+    assert timers.spans is None and [s.name for s in on.spans] == ["frame"]
+    files = sorted((tmp_path / "traces" / "spans").iterdir())
+    assert [f.name.split("-")[0] for f in files] == ["spans", "trace"]
+    assert files[0].name[5:] == files[1].name[5:]
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert [(e["name"], e["tid"], e["args"]["frame"]) for e in events
+            if e["ph"] == "X"] == [("frame", 0, 1)]
 
 
 def test_time_stage_times_and_returns():

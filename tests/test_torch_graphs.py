@@ -117,7 +117,8 @@ def sweeps():
 class CallLog:
     """Within the block, every call of a program whose name starts with
     `prefix`: clones of its state and inputs before the call and of its
-    state and outputs after it."""
+    state and outputs after it, and the outputs themselves, held so that
+    no later tensor takes their addresses (`out_ptrs`)."""
 
     def __init__(self, prefix):
         self.prefix, self.calls = prefix, []
@@ -137,6 +138,7 @@ class CallLog:
             out = log.orig(prog)
             entry.update(after=graphs.tree_map(torch.clone, prog.state),
                          out=graphs.tree_map(torch.clone, out),
+                         out_held=out,
                          out_ptrs=[t.data_ptr()
                                    for t in graphs.tree_leaves(out)])
             log.calls.append(entry)

@@ -291,3 +291,75 @@ def test_replaced_state_is_copied_before_the_replay(cuda):
     out = prog()
     assert prog.state is buf and prog.captures == 1 and prog.replays == 2
     assert buf.tolist() == [10.0] * 3 and out.item() == 15.0
+
+
+VISION_RANGES = ["preprocess", "pyramid", "lk", "f_ransac", "pnp_ransac",
+                 "vio_esikf", "vio_photometric", "render", "tracks"]
+
+
+def _livo(cuda, sim, events: bool, timers=None):
+    cfg = small_cfg(True)
+    graphs.stage_events(events)
+    try:
+        vision = VisionModule(cfg, device=cuda)
+        pipe = LivoPipeline(cfg, vision=vision, device=cuda)
+        if timers is not None:
+            pipe.timers = timers
+        run_streams(pipe, sim)
+    finally:
+        graphs.stage_events(False)
+    return pipe
+
+
+def test_stage_events_add_only_their_marks(cuda, sim):
+    """The vision frame program captured with stage events off holds the
+    graph of one captured with them on, less its marks; the latter's
+    `stage_ms` names the nine ranges, and `graphs.stage_log` holds them
+    for each of its replays.  The step program with them on counts its
+    IEKF's active rounds in the steady phase, at most the rounds it
+    counted, fewer than the rounds run."""
+    off = _livo(cuda, sim, False)
+    n_log = len(graphs.stage_log())
+    active0, run0 = lio.active_rounds.read(), lio.counts["iterations"]
+    added0 = lio.active_rounds.added()
+    on = _livo(cuda, sim, True)
+    active, added, run = (lio.active_rounds.read() - active0,
+                          lio.active_rounds.added() - added0,
+                          lio.counts["iterations"] - run0)
+    (p_off,) = off.vision.programs.values()
+    (p_on,) = on.vision.programs.values()
+    assert p_off.marks == [] and p_off.stage_ms() == {}
+    assert p_on.nodes - p_off.nodes == len(p_on.marks) == 10
+    ms = p_on.stage_ms()
+    assert list(ms) == VISION_RANGES and all(v > 0 for v in ms.values())
+    log = [d for name, d in graphs.stage_log()[n_log:] if name == p_on.name]
+    # a replay still running at its program's next call is left out
+    assert 0 < len(log) <= p_on.replays and log[-1] == ms
+    assert all(list(d) == VISION_RANGES for d in log)
+    assert 0 < active <= added < run
+    for key, prog in off.engine.programs.items():
+        assert on.engine.programs[key].nodes > prog.nodes
+
+
+def test_spans_on_the_card(cuda, sim):
+    """Spans on the card: the device stages' intervals, on the host's
+    clock, start after their host span opened (the anchor's error aside)
+    and follow one another on the stream."""
+    from sr_livo_tpu_torch.utils.profiling import StageTimers
+    timers = StageTimers(device=cuda, spans=True)
+    pipe = _livo(cuda, sim, False, timers)
+    n = len(pipe.records)
+    spans = timers.read_spans()
+    assert sum(s.name == "frame" for s in spans) == n
+    dev = [s for s in spans if s.device is not None]
+    assert {s.name for s in dev} >= {"upload", "lio_step", "vis_insert",
+                                     "noise", "replay", "records"}
+    busy, gaps = timers.busy(spans[0].start, spans[-1].end)
+    per = timers.per_frame()
+    assert busy > 0 and sum(p["device_ms"] for p in per.values()) > 0
+    assert len(timers.idle_gaps(spans[0].start, spans[-1].end, n=3)) == 3
+    for s in dev:
+        a, b = s.device
+        assert a <= b and a >= s.start - 50_000        # 50 us
+    ends = [s.device for s in sorted(dev, key=lambda s: s.start)]
+    assert all(x[1] <= y[0] + 50_000 for x, y in zip(ends, ends[1:]))
