@@ -102,7 +102,7 @@ Phases, each printing one JSON line:
      capture seconds, and the peak reserved memory beside the allocated;
   7b. graphs — the captured programs (`utils/graphs.py`: the LIO step,
      the colored-map insert and the vision frame, CUDA graph replays on
-     the card; their loops masked rounds, `LOOP_ROUTES`): (a) the LIO
+     the card; their loops as `LOOP_ROUTES` says): (a) the LIO
      step in both association modes on the slice's simulation, on an
      8 s r3live-profile bag with `retry_wider_neighborhood` on, and the
      three programs on the 20 s LIVO run at `bench.make_cfg()`: every
@@ -127,8 +127,10 @@ Phases, each printing one JSON line:
      (the pose-graph and sharded-BA sums are ordered,
      `graphs.scatter_sum`, so their replays too give the eager bits).
      The launch counts hold as the code calls for (a replay
-     adds what its capture launched: a masked round launches its kernel
-     too), and the LIVO run passes the vision bars;
+     adds what its capture launched, a conditional node's body what it
+     ran: a masked round launches its kernel too, a WHILE node only the
+     live rounds), the profiled frames' traced kernels are those
+     counted, and the LIVO run passes the vision bars;
   8. longrun — the same run with the long-run parts on: the mapping
      backend (loop feedback into the filter with map rebuild, otherwise
      BackendConfig's defaults), far-voxel eviction every 20 frames and a
@@ -290,17 +292,20 @@ CAPTURED = {
     "plane_assoc": "off the main path", "plane_rows": "off the main path"}
 # How each data-dependent loop of the JAX programs runs in the port's
 # captured programs (utils/graphs.py): this PyTorch build exposes no CUDA
-# graph conditional nodes (tests/torch_cond_probe.py), so every loop with
-# rounds is masked rounds up to its proven bound.
+# graph conditional nodes, so the port builds the IEKF's WHILE node and
+# the retry's IF node itself (csrc/graph_cond.cu, tests/
+# torch_cond_probe.py); every other loop with rounds is masked rounds up
+# to its proven bound.
 LOOP_ROUTES = {
     "ops/frame.py::bucket_dedup_min": "no loop: one stable sort",
     "ops/voxel_map.py::_insert_gate_phase_chunked":
         "masked rounds, ceil(n / chunk)",
     "ops/voxel_map.py::insert claim rounds": "masked rounds, max_probe + 1",
     "ops/color_map.py::_claim_dedup": "masked rounds, max_probe + 1",
-    "models/lio.py::iekf_update": "masked rounds, max_iters + 1",
-    "models/odometry.py::_sweep_core retry": "both branches, select "
-                                             "(graphs.cond)",
+    "models/lio.py::iekf_update": "a WHILE node, at most max_iters + 1 "
+                                  "rounds launched (graphs.while_loop)",
+    "models/odometry.py::_sweep_core retry": "an IF node, launched where "
+                                             "taken (graphs.cond)",
     "ops/voxel_map.py::compact_map claim rounds":
         "masked rounds, max_probe + 1",
     "parallel/pose_graph.py Gauss-Newton fori_loop":
@@ -309,8 +314,11 @@ LOOP_ROUTES = {
     "parallel/ba.py::windowed_ba fori_loop": "unrolled, iters",
     "parallel/loop_closure.py::verify_closure fori_loop": "unrolled, iters",
     "parallel/sharded_lio.py::_iekf while_loop":
-        "masked rounds, max_iters + 1, each round's two psums called",
-    "parallel/sharded_lio.py::_sweep_core retry": "both branches, select "
+        "over a process group masked rounds, max_iters + 1, each round's "
+        "two psums called; a WHILE node on a world of one without one",
+    "parallel/sharded_lio.py::_sweep_core retry": "over a process group "
+                                                  "both branches, select; "
+                                                  "an IF node without one "
                                                   "(graphs.cond)",
     "parallel/ba.py::make_sharded_windowed_ba fori_loop":
         "unrolled, iters, one graph with its psums"}
@@ -530,6 +538,14 @@ def _programs():
     checkout from before it (to compare the two trees in one call)."""
     from sr_livo_tpu_torch.utils import graphs
     return graphs
+
+
+def launch_counts() -> dict:
+    """`plane_fit.launches`, with `lio.counts`, brought up to date with the
+    runs of the programs' conditional bodies (`graphs.settle_counts`, a
+    wait; nothing to settle in a checkout without them)."""
+    getattr(_programs(), "settle_counts", lambda: None)()
+    return dict(plane_fit.launches)
 
 
 def in_capture() -> bool:
@@ -776,7 +792,7 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
         pipe.process_measurements(meas[n_warm:])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = dict(plane_fit.launches)
+    launches = launch_counts()
     rounds = lio.counts["iterations"] - rounds0
 
     recs = pipe.records
@@ -798,7 +814,7 @@ def slice_phase(sim, cache_association: bool, n_warm: int = 60):
     emit(out)
     if not pipe.initialized or len(recs) < 100:
         raise AssertionError(f"too few frames processed: {len(recs)}")
-    # with a program, every round of the masked IEKF loop launches
+    # one search per IEKF round launched (a WHILE node's live rounds)
     want = len(recs) if cache_association else rounds
     if launches[entry] != want:
         raise AssertionError(f"{entry} launched {launches[entry]} times, "
@@ -993,8 +1009,9 @@ HOST_LAUNCHES = KERNEL_LAUNCHES + ("cudaGraphLaunch", "cuGraphLaunch",
 def device_profile(run, ranges: str = "") -> dict:
     """torch.profiler around `run()` (which ends in a synchronize): the
     window's host wall time, the device events in it, the union of their
-    time (the device's busy time and share of the window), and the 10
-    device ops with the most device time.  With `ranges`, also each
+    time (the device's busy time and share of the window), the 10
+    device ops with the most device time, and the fused plane kernels'
+    runs (`plane_kernels`, by entry).  With `ranges`, also each
     profiler range (`record_function`) whose name starts with it: calls,
     host ms, device ms of the kernels it launched, and its kernel
     launches, summed over the window."""
@@ -1034,7 +1051,11 @@ def device_profile(run, ranges: str = "") -> dict:
            "host_launches": max(per_thread.values(), default=0),
            "host_launches_per_thread": sorted(per_thread.values()),
            "top_device_ops": [{"name": name[:160], "ms": t / 1e3,
-                               "calls": n} for name, (t, n) in top]}
+                               "calls": n} for name, (t, n) in top],
+           "plane_kernels": {
+               e: sum(n for name, (_, n) in by_name.items()
+                      if e + "_kernel" in name)
+               for e in ("knn_plane_assoc", "knn_plane_rows")}}
     if ranges:
         cpu = [e for e in events if e.device_type == DeviceType.CPU]
         launches = sorted(e.time_range.start for e in cpu
@@ -1177,7 +1198,7 @@ def livo_phase(sim, render_ms: float, cfg: LivoConfig,
             torch.cuda.synchronize()
 
         prof = device_profile(run, ranges="vision.")
-    launches = dict(plane_fit.launches)
+    launches = launch_counts()
     prof["device_ops_per_rendered_frame"] = (
         prof["device_events"] / max(n_rendered, 1))
     prof["host_launches_per_rendered_frame"] = (
@@ -1236,10 +1257,11 @@ def vision_bar_failures(checks: dict) -> list:
 # ---------------------------------------------------------------------------
 
 def program_record(vision, engine, *owners) -> list:
-    """Per captured program of a run: its graph's nodes, captures, replays
-    and the host seconds of its last capture (none in a checkout from
-    before the programs); `owners` (the backend, the pipeline) hold more
-    in `programs`."""
+    """Per captured program of a run: its graph's nodes, captures, replays,
+    the host seconds of its last capture and the nodes of each of its
+    conditional nodes' bodies (none in a checkout from before the
+    programs); `owners` (the backend, the pipeline) hold more in
+    `programs`."""
     progs = list(getattr(vision, "programs", {}).values())
     progs += list(getattr(vision, "insert_programs", {}).values())
     progs += list(getattr(engine, "programs", {}).values())
@@ -1247,7 +1269,9 @@ def program_record(vision, engine, *owners) -> list:
     for owner in owners:
         progs += list(getattr(owner, "programs", {}).values())
     return [{"name": p.name, "nodes": p.nodes, "captures": p.captures,
-             "replays": p.replays, "capture_s": p.capture_s}
+             "replays": p.replays, "capture_s": p.capture_s,
+             "body_nodes": [_programs().graph_nodes(b)
+                            for b in getattr(p, "bodies", [])]}
             for p in progs]
 
 
@@ -1404,8 +1428,8 @@ def steady_program(engine):
 
 
 def retry_cost(pipe, cfg) -> dict:
-    """The r3live steady step with `retry_wider_neighborhood` (both
-    branches run, `graphs.cond`) against the same step without it, on
+    """The r3live steady step with `retry_wider_neighborhood` (an IF
+    node, `graphs.cond`) against the same step without it, on
     the run's last steady sweep and state: device ms of a replay each."""
     import dataclasses
     graphs = _programs()
@@ -1448,7 +1472,7 @@ def no_sync_step(pipe, vision) -> str:
 
 def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
     """The captured programs (`utils/graphs.py`) on the card, their loops
-    masked rounds (`LOOP_ROUTES`).  (a) The LIO step program in both
+    as `LOOP_ROUTES` says.  (a) The LIO step program in both
     association modes on phase slice's simulation, on an 8 s
     r3live-profile bag (no images) with `retry_wider_neighborhood`, and
     the step, colored-map insert and vision frame programs on the 20 s
@@ -1466,9 +1490,14 @@ def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
     `n_split` frames before those, each program's replay in device ms and
     the step's stages (in-graph events), and the r3live step's device ms
     with and without the retry.  (e) No synchronizing call in a steady
-    sweep's step and colored-map insert.  Launches: one `knn_plane_assoc`
-    per IEKF update and one `knn_plane_rows` per IEKF round as
-    `lio.counts` counts them (a replay adds its capture's)."""
+    sweep's step and colored-map insert.  Launches, counted where they
+    ran (`launch_counts`: a conditional node's body by its runs on the
+    device): one `knn_plane_assoc` per IEKF update and one
+    `knn_plane_rows` per IEKF round; the rounds are the live ones, the
+    frames' own iteration counts (more with the retry, whose first
+    update's rounds the frame's record does not hold), and one update
+    per frame, two where the retry ran; in the profiled frames the
+    kernels in the device trace are the launches counted."""
     import tempfile
     graphs = _programs()
     out = {"phase": "graphs", "loop_routes": LOOP_ROUTES,
@@ -1476,17 +1505,23 @@ def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
                                   "begin_capture_to_if_node")}
     bad = []
 
-    def launch_check(tag, launches, c0, frames, retry=False):
+    def launch_check(tag, launches, c0, recs, retry=False):
         upd = lio.counts["updates"] - c0["updates"]
         rounds = lio.counts["iterations"] - c0["iterations"]
+        live = sum(r.iterations for r in recs)
         want = dict.fromkeys(launches, 0)
         if launches["knn_plane_rows"]:
             want["knn_plane_rows"] = rounds
         else:
             want["knn_plane_assoc"] = upd
-        if launches != want or upd != (2 if retry else 1) * frames:
+        frames = len(recs)
+        if (launches != want
+                or not (frames < upd < 2 * frames if retry
+                        else upd == frames)
+                or not (live < rounds if retry else live == rounds)):
             bad.append(f"{tag}: launches {launches} in {frames} frames, "
-                       f"{upd} updates and {rounds} rounds")
+                       f"{upd} updates, {rounds} rounds, {live} of them "
+                       "in the frames' records")
         return {"iekf_updates": upd, "iekf_rounds": rounds}
 
     def check_failures(tag, chk):
@@ -1507,12 +1542,12 @@ def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
             pipe = LivoPipeline(cfg, device="cuda")
             pipe.process_measurements(bench.cut_all(pipe, sim))
             torch.cuda.synchronize()
-        launches = dict(plane_fit.launches)
+        launches = launch_counts()
         rec = {"checks": chk.summary(), "frames": len(pipe.records),
                "iekf_iterations": sum(r.iterations for r in pipe.records),
                "launches": launches,
                **launch_check(f"lio step ({cache=})", launches, c0,
-                              len(pipe.records)),
+                              pipe.records),
                "programs": program_record(None, pipe.engine)}
         if not cache:
             if cap.args is None:
@@ -1539,11 +1574,11 @@ def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
             drivers.replay_bag(pipe, path, cfg, *R3_TOPICS,
                                image_type=drivers.IMAGE_TYPE_RGB8)
             torch.cuda.synchronize()
-    launches = dict(plane_fit.launches)
+    launches = launch_counts()
     rec = {"checks": chk.summary(), "frames": len(pipe.records),
            "registered": sum(r.success for r in pipe.records),
            "launches": launches,
-           **launch_check("r3live retry", launches, c0, len(pipe.records),
+           **launch_check("r3live retry", launches, c0, pipe.records,
                           retry=True),
            "programs": program_record(None, pipe.engine),
            **retry_cost(pipe, cfg)}
@@ -1577,11 +1612,16 @@ def graphs_phase(sim, lsim, n_profile: int = 20, n_split: int = 20) -> dict:
         pipe.process_measurements(rest)
         torch.cuda.synchronize()
 
+    window0 = launch_counts()
     prof = device_profile(run)
-    launches = dict(plane_fit.launches)
+    launches = launch_counts()
+    window = {e: launches[e] - window0[e] for e in prof["plane_kernels"]}
+    if window != prof["plane_kernels"]:
+        bad.append(f"livo: {window} launches counted in the profiled "
+                   f"frames, {prof['plane_kernels']} kernels traced")
     rec = {"checks": chk.summary(), "frames": len(pipe.records),
            "rendered_frames": len(vision.stats), "launches": launches,
-           **launch_check("livo", launches, c0, len(pipe.records)),
+           **launch_check("livo", launches, c0, pipe.records),
            "programs": program_record(vision, pipe.engine),
            "replay_device_ms": replays,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -1873,7 +1913,7 @@ def longrun_phase(sim, cfg: LivoConfig, n_warm_frames: int = 20) -> tuple:
             t1 = time.perf_counter()
             kf_times, t_opt, _ = backend.optimized_trajectory()
             solve_ms = (time.perf_counter() - t1) * 1e3
-        launches = dict(plane_fit.launches)
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         frames = len(pipe.records)
         lines = read_live_trajectory(out_dir)
@@ -2232,7 +2272,7 @@ def replay_phase(duration: float = 20.0, seed: int = 11,
             if on_cuda:
                 torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-        launches = dict(plane_fit.launches)
+        launches = launch_counts()
         n_updates = lio.counts["updates"] - updates0
 
     recs = pipe.records
@@ -2438,7 +2478,7 @@ def gate_phase(device="cuda") -> dict:
         report = gate.run_gate(quick=True, cache=d, device=device,
                                runner=runner)
         seconds = time.perf_counter() - t0
-    launches = dict(plane_fit.launches)
+    launches = launch_counts()
     checks = report["checks"]
     out = {"phase": "gate", "checks": checks, "all_pass": report["all_pass"],
            "seconds": seconds,
@@ -2549,7 +2589,7 @@ def run_sharded(eng, log, keep=(), check=None) -> dict:
             "seconds": np.array(seconds), "checked": np.array(checked),
             "state": state, "map": vmap,
             "map_size": int(eng.map_size(vmap)),
-            "launches": dict(plane_fit.launches),
+            "launches": launch_counts(),
             "plain_knn_calls_on_cuda": knn_calls.n,
             "iekf_updates": lio.counts["updates"] - updates0,
             "frames_digest": digest.hexdigest(), "kept": kept}
@@ -3030,7 +3070,7 @@ def scaling_phase() -> dict:
     updates0 = lio.counts["updates"]
     with cuda_knn_calls() as knn_calls:
         rec = scaling_bench.run_bench("cuda", runner=runner)
-    launched = dict(plane_fit.launches,
+    launched = dict(launch_counts(),
                     iekf_updates=lio.counts["updates"] - updates0)
     seconds = time.perf_counter() - t0
     memory = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -3102,7 +3142,7 @@ def bench_phase() -> dict:
         rec, pipe = bench.run_bench(bench.make_cfg(), sim, "cuda",
                                     runner=runner)
         seconds = time.perf_counter() - t0
-    launches = dict(plane_fit.launches)
+    launches = launch_counts()
     recs = pipe.records
     n_fail = sum(1 for r in recs if not r.success)
     ts, ps, _ = pipe.trajectory()

@@ -5,9 +5,11 @@ src/optimize.cpp): the residual rows vectorize buildPlaneResiduals
 (optimize.cpp:18-131) over all keypoints, and `iekf_update` runs
 updateIEKF (optimize.cpp:133-314) with the same information-form Kalman
 gain and SO(3)/S2 covariance-reset Jacobians.  Its iteration loop, a
-`lax.while_loop` in the JAX package, is masked rounds up to its bound
-(`utils.graphs.go_on`), so the LIO step program captures the whole
-update and reads nothing back to the host.
+`lax.while_loop` in the JAX package, is `utils.graphs.while_loop`: in the
+LIO step program's capture a WHILE node whose body is one round, so a
+round after the loop's flag went down is never launched; masked rounds up
+to its bound where a round holds a collective.  Either way the program
+reads nothing back to the host.
 The kNN association and the plane rows go through `ops.plane_fit`'s
 fused entries: one CUDA kernel launch on CUDA tensors, the plain PyTorch
 kNN and plane fit on CPU tensors.
@@ -42,15 +44,19 @@ class IekfSummary(NamedTuple):
 # IEKF updates of either engine (counted as each starts, before its
 # association) and their iteration rounds; host integers, callers read
 # differences.  Inside a captured program (utils.graphs) they count what
-# the capture holds, on each replay: every masked round, and the
-# weak-solve retry's update whether or not it is taken.
+# ran: every masked round, the rounds a WHILE node launched and the
+# weak-solve retry's update where its IF node took it, the last two
+# brought up to date by `graphs.settle_counts()`.
 counts = graphs.register_counter({"updates": 0, "iterations": 0})
 # The rounds among those whose flag was up (the rounds that did work), on
 # the device: counted in programs captured with stage events on
 # (`graphs.DeviceCount`), the step's init phase left out.  Against the
-# rounds it counted (`active_rounds.added()`), the share of masked rounds
-# that were not dead.
+# rounds it counted (`active_rounds.added()`, every round up to the
+# bound), the share of rounds that were not dead.
 active_rounds = graphs.register_device_count(graphs.DeviceCount())
+# The rounds the device launched, counted on the device in the same
+# programs: every masked round, only the live ones in a WHILE node.
+launched_rounds = graphs.register_device_count(graphs.DeviceCount())
 
 
 def _lam(weight_alpha: float, weight_neighborhood: float):
@@ -165,11 +171,11 @@ def iekf_update(state: EskfState, voxel_map: vm.VoxelMap, keypts_raw,
     stays the prediction prior (the INIT_CONSTANT_VELOCITY predictor,
     lioOptimization.cpp:895-990).
 
-    The loop is `iekf_iterations`: masked rounds, which read nothing back
-    to the host in capture form.  `active` (a device bool) masks the
-    whole update, as the weak-solve retry's branch runs in capture form
-    (`graphs.cond`): where it is down no keypoint is searched and no
-    round runs.  Returns (state, IekfSummary).
+    The loop is `iekf_iterations`, which reads nothing back to the host
+    in capture form.  `active` (a device bool) masks the whole update, as
+    the weak-solve retry's branch runs where it is masked (`graphs.cond`):
+    where it is down no keypoint is searched and no round does work.
+    Returns (state, IekfSummary).
     """
     counts["updates"] += 1
     pred = state
@@ -301,7 +307,7 @@ def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
                     threshold_translation_norm: float,
                     threshold_orientation_norm: float,
                     laser_point_cov: float, check_convergence: bool = True,
-                    go=None):
+                    go=None, masked: bool = False):
     """The iteration loop of updateIEKF (optimize.cpp:133-314) from the
     starting iterate `state` against the prediction prior `pred`, the
     loop of both engines.
@@ -313,29 +319,28 @@ def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
     dropped, so the function may skip its work there.
 
     The JAX package's `while_loop` (sr_livo_tpu/models/lio.py:400) as
-    masked rounds: a device flag "go on" gates each of the `max_iters + 1`
-    rounds, whose results are kept only where it holds (`graphs.go_on`:
-    every round in capture form, the flag read back in an eager run, so
-    an eager loop stops where JAX's does).  The sharded engine's flag
-    comes from psum'd values, the same on every rank, so in either form
-    every rank calls `normal_equations`, and its collectives, the same
-    number of times.  The iteration count, the last round's residual
-    count, the success flag, the covariance and the restore of the
-    starting state on a rejected update (sr_livo_tpu/models/lio.py:
-    404-406) stay on the device.  `go` (a device bool) masks the whole
-    loop: where it is down no round runs.  Returns (state, IekfSummary).
+    `graphs.while_loop` over a device flag "go on", at most `max_iters +
+    1` rounds, each keeping its results only where the flag holds: in a
+    program's capture on the card a WHILE node, which launches no round
+    after the flag went down; masked rounds with `masked` (the sharded
+    engine over a process group, whose flag comes from psum'd values, the
+    same on every rank, so every rank calls `normal_equations`, and its
+    collectives, the same number of times), in capture form elsewhere,
+    and eagerly up to where the flag drops.  The iteration count, the
+    last round's residual count, the success flag, the covariance and the
+    restore of the starting state on a rejected update
+    (sr_livo_tpu/models/lio.py:404-406) stay on the device.  `go` (a
+    device bool) masks the whole loop: where it is down no round does
+    work.  Returns (state, IekfSummary).
     """
     dev = pred.cov.device
     if go is None:
         go = torch.ones((), dtype=torch.bool, device=dev)
-    x, cov_final = pack_state(state), pred.cov
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    ok = torch.ones((), dtype=torch.bool, device=dev)
-    n_res = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(max_iters + 1):
-        if not graphs.go_on(go):
-            break
+
+    def round_(carry):
+        x, cov_final, it, ok, n_res, go = carry
         counts["iterations"] += 1
+        launched_rounds.add_one(dev)
         active_rounds.add(go)
         s = unpack_state(x)
         hth, hth_h, num = normal_equations(s, go)
@@ -352,6 +357,15 @@ def iekf_iterations(state: EskfState, pred: EskfState, normal_equations, *,
         ok = torch.where(go, flags[0], ok)
         n_res = torch.where(go, num, n_res)
         go = go & (it < max_iters + 1) & ~flags[1] & flags[0]
+        return x, cov_final, it, ok, n_res, go
+
+    x, cov_final, it, ok, n_res, _ = graphs.while_loop(
+        lambda carry: carry[-1], round_,
+        (pack_state(state), pred.cov,
+         torch.zeros((), dtype=torch.int32, device=dev),
+         torch.ones((), dtype=torch.bool, device=dev),
+         torch.zeros((), dtype=torch.int32, device=dev), go),
+        max_iters + 1, masked=masked)
 
     s = unpack_state(x, state)._replace(cov=cov_final)
     s = eskf_mod.map_state(lambda a, b: torch.where(ok, a, b), s, state)

@@ -8,10 +8,11 @@ package runs a sweep as one jitted program per phase with the map
 donated (`LioEngine._steps`, sr_livo_tpu/models/odometry.py:286-291);
 here `LioEngine.step` runs `_sweep_core` as one `utils.graphs.Program`
 per phase: one CUDA graph replay on the card, the function run directly
-on the CPU.  Its data-dependent loops (the IEKF iterations, the insert's
-gate chunks and claim rounds) are masked rounds up to proven bounds and
-the weak-solve retry is `graphs.cond`, so a replay reads nothing back to
-the host.
+on the CPU.  Its data-dependent control flow reads nothing back to the
+host in a replay: the IEKF iterations are a WHILE node and the
+weak-solve retry an IF node (`graphs.while_loop`, `graphs.cond`), so no
+dead round and no untaken retry is launched; the insert's gate chunks and
+claim rounds are masked rounds up to proven bounds.
 """
 
 from __future__ import annotations
@@ -224,7 +225,8 @@ def _sweep_core(state: EskfState, voxel_map: vm.VoxelMap, sweep: SweepInput,
             # Failure/weak-solve recovery: re-run once over the widened
             # neighbourhood when the update failed OR solved on fewer than
             # `min_num_residuals` rows (the JAX package's `lax.cond`,
-            # sr_livo_tpu/models/odometry.py:237).
+            # sr_livo_tpu/models/odometry.py:237); in a capture, neither
+            # its association nor its rounds launch when it is not taken.
             weak = ~(summary.success
                      & (summary.num_residuals >= icp.min_num_residuals))
             state_upd, summary = graphs.cond(

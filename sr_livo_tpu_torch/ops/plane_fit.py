@@ -44,13 +44,16 @@ from sr_livo_tpu_torch.ops import voxel_map as vm
 from sr_livo_tpu_torch.utils import graphs
 
 # Kernel launches per entry since the last reset_launches().  A launch
-# inside a captured program (utils.graphs) counts on each replay.
+# inside a captured program (utils.graphs) counts on each replay, one in a
+# conditional node's body each time the body ran, once
+# `graphs.settle_counts()` has read the runs.
 launches = graphs.register_counter(
     {"plane_rows": 0, "plane_assoc": 0, "knn_plane_assoc": 0,
      "knn_plane_rows": 0})
 
 
 def reset_launches():
+    graphs.settle_counts()       # runs so far belong before the reset
     for k in launches:
         launches[k] = 0
 

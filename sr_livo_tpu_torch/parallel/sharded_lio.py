@@ -49,10 +49,13 @@ and the profile prefixes (`_steps`, sr_livo_tpu/parallel/sharded_lio.py:
 214-313).  On a capturable mesh (`Mesh.capturable`: a world of one, or
 NCCL) each of them is a `utils.graphs.Program` per rank, kept in
 `ShardedLioEngine.programs`: captured once as a CUDA graph, collectives
-included, and replayed; run directly on the CPU.  Their loops are masked
-rounds and the retry is `graphs.cond`, as in the single-device step, so
-in a replay every round's collectives run, dead rounds and the untaken
-retry included, the same on every rank.  On a gloo mesh, whose
+included, and replayed; run directly on the CPU.  Over a process group
+their IEKF loops are masked rounds and the retry runs both branches
+(`masked_loops`: a collective cannot sit in a conditional node's body),
+so in a replay every round's collectives run, dead rounds and the
+untaken retry included, the same on every rank; a world of one without
+a group takes the single-device step's conditional nodes.  On a gloo
+mesh, whose
 collectives stage CUDA tensors through host memory and cannot be
 captured, the same functions run eagerly: loops stop on replicated flags
 read back to the host, the retry runs only when taken.
@@ -179,6 +182,9 @@ class ShardedLioEngine:
         program shapes of an n-rank run."""
         self.cfg = cfg
         self.mesh = mesh
+        # Over a process group the IEKF's rounds hold psums that every rank
+        # calls: they stay masked rounds, and the retry a select
+        self.masked_loops = mesh.group is not None
         self.n_shards = n = mesh.size
         self.device = mesh.device
         self.dtype = dtype
@@ -560,7 +566,7 @@ class ShardedLioEngine:
                      & (summary.num_residuals >= icp.min_num_residuals))
             state_upd, summary = graphs.cond(
                 weak, lambda active: _run_iekf(nb_voxels + 1, active),
-                (state_upd, summary))
+                (state_upd, summary), masked=self.masked_loops)
         state_new = eskf_mod.map_state(
             lambda a, b: torch.where(sweep.do_optimize, a, b),
             state_upd, state_pred)
@@ -795,6 +801,7 @@ class ShardedLioEngine:
 
         return lio.iekf_iterations(
             state, state, normal_equations, go=active,
+            masked=self.masked_loops,
             min_number_neighbors=icp.min_number_neighbors,
             max_iters=max_iters,
             threshold_translation_norm=icp.threshold_translation_norm,

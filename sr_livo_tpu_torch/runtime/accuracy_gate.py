@@ -330,6 +330,7 @@ def run_profile(yaml_path: str, bag: str, topics, image_type: str,
     from sr_livo_tpu_torch.ops import plane_fit
     from sr_livo_tpu_torch.pipeline import LivoPipeline
     from sr_livo_tpu_torch.runtime import drivers, tum
+    from sr_livo_tpu_torch.utils import graphs
 
     cfg = profile_config(yaml_path, cache_association, wire_quantization)
     backend = None
@@ -342,12 +343,14 @@ def run_profile(yaml_path: str, bag: str, topics, image_type: str,
 
     vision = VisionModule(cfg, device=device)
     pipe = LivoPipeline(cfg, vision=vision, backend=backend, device=device)
+    graphs.settle_counts()
     before, before_iekf = dict(plane_fit.launches), dict(lio.counts)
     t0 = time.time()
     drivers.replay_bag(pipe, bag, cfg, *topics, image_type=image_type)
     if pipe.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.time() - t0
+    graphs.settle_counts()
     launches = {k: v - before[k] for k, v in plane_fit.launches.items()}
     iekf = {k: v - before_iekf[k] for k, v in lio.counts.items()}
 

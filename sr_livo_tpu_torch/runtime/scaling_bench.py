@@ -218,6 +218,7 @@ def pershard_override(cfg: LivoConfig, n: int) -> dict:
 
 
 def _counters() -> dict:
+    graphs.settle_counts()
     return dict(plane_fit.launches, iekf_updates=lio.counts["updates"])
 
 

@@ -37,20 +37,32 @@ is no eager fallback on the card.  On the CPU the same `fn` and write-back
 run directly: that is the plain path and the oracle of the tests.
 
 Data-dependent control flow.  The JAX programs hold `lax.while_loop`s and
-`lax.cond`s; a CUDA graph holds a fixed sequence of kernels.  CUDA's
-conditional nodes would skip a dead round on the device, but PyTorch
-2.11 (CUDA 12.8), the build the port is measured with, does not expose
-them (`tests/torch_cond_probe.py`), so every such loop is written as MASKED
-ROUNDS up to a proven bound: each round is a no-op once the loop's
-device flag is down.  The function asks `go_on(flag)` before a round:
-in capture form (the warm-up and the capture of a `Program`, or a
-`capture_form()` block) it is True and every round runs; in an eager run
-(the CPU, or the card outside a program) it reads the flag back and the
-loop stops where JAX's would.  Both forms give the same bits: a masked
-round changes nothing.  `cond(pred, true_fn, false_value)` is `lax.cond`
-with an identity false branch: in capture form both run and a select
-keeps one, eagerly the host picks.  A program therefore reads nothing
-back to the host, and an eager run does no dead work.
+`lax.cond`s; a CUDA graph holds a fixed sequence of nodes.  PyTorch 2.11
+(CUDA 12.8), the build the port is measured with, exposes no conditional
+node (`tests/torch_cond_probe.py`), so there are two forms:
+
+  * MASKED ROUNDS up to a proven bound: each round is a no-op once the
+    loop's device flag is down.  The function asks `go_on(flag)` before a
+    round: in capture form (the warm-up and the capture of a `Program`,
+    or a `capture_form()` block) it is True and every round runs; in an
+    eager run (the CPU, or the card outside a program) it reads the flag
+    back and the loop stops where JAX's would.  `cond(pred, true_fn,
+    false_value)` is `lax.cond` with an identity false branch: in capture
+    form both run and a select keeps one, eagerly the host picks.
+  * CONDITIONAL NODES, built by hand (`csrc/graph_cond.cu`): inside a
+    `Program`'s capture on the card, `while_loop` puts its round into the
+    body of a WHILE node and `cond` its branch into an IF node, so a round
+    or branch that the flag rules out is never launched.  Their values
+    live in buffers made before the node, which the body writes back in
+    place, and the body's allocations come from the program's pool.  The
+    warm-up, an eager run and the CPU take the forms above.  A caller
+    whose rounds hold a collective that every rank must call passes
+    `masked=True` and keeps masked rounds.
+
+Every form gives the same bits: a masked round changes nothing, and a
+node's body holds the round's kernels in their order.  A program
+therefore reads nothing back to the host, and an eager run does no dead
+work.
 
 `outputs` are the graph's own tensors, which the next replay overwrites:
 a caller clones what it keeps.  A pure function is a program with state
@@ -64,7 +76,12 @@ Launch counters: a kernel wrapper adds one to a host dict where it
 launches (`plane_fit.launches`), and a replay runs no Python.  So the
 increments of every registered counter during capture are recorded,
 taken back (a capture launches nothing) and added again on each replay.
-The warm-up's launches are taken back too: they are not the path's.
+The warm-up's launches are taken back too: they are not the path's.  A
+conditional node's body runs as often as the device decides, so its
+increments are taken back as well and counted on the device instead:
+each body adds one to its own slot of the program's run counts when it
+runs, and `settle_counts()` (a wait) adds each body's increments times
+its runs to the counters.  A reader of a launch counter settles first.
 A count that depends on device values (the IEKF rounds that did work)
 is a `DeviceCount`, added to on the device with no host read, in
 programs captured with stage events on only.
@@ -77,6 +94,7 @@ import ctypes
 import functools
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -84,10 +102,15 @@ import torch
 # Host launch counters (dicts of int) that replays advance; kernel modules
 # register theirs when they are imported.
 _COUNTERS: List[Dict[str, int]] = []
+# Whether each counts launches (a conditional body's runs on the device)
+# or, as a `DeviceCount`'s adds, what the capture stands for
+_PER_RUN: List[bool] = []
 
 
-def register_counter(counter: Dict[str, int]) -> Dict[str, int]:
+def register_counter(counter: Dict[str, int],
+                     per_run: bool = True) -> Dict[str, int]:
     _COUNTERS.append(counter)
+    _PER_RUN.append(per_run)
     return counter
 
 
@@ -140,16 +163,195 @@ def go_on(flag: torch.Tensor) -> bool:
     return True if in_capture_form() else bool(flag)
 
 
-def cond(pred: torch.Tensor, true_fn: Callable, false_value):
+def while_loop(flag: Callable, body: Callable, carry, bound: int,
+               masked: bool = False):
+    """`lax.while_loop(flag, body, carry)` for a loop of at most `bound`
+    rounds: `flag(carry)` is the carry's device bool, which `body` keeps
+    down once it went down, and `body(carry)` returns the next carry.
+    Inside a `Program`'s capture on the card the round is the body of a
+    WHILE node over buffers cloned from `carry`, which also counts its
+    rounds and stops at the bound, unless `masked`; elsewhere masked
+    rounds (`go_on`).  In the node a `DeviceCount` add in the round
+    counts as `bound` adds (`DeviceCount.added`), as over the masked
+    rounds.  Returns the last carry."""
+    if masked or bound < 1 or not _builds_nodes(flag(carry)):
+        for _ in range(bound):
+            if not go_on(flag(carry)):
+                break
+            carry = body(carry)
+        return carry
+    bufs = tree_map(torch.clone, carry)
+    rounds = torch.zeros((), dtype=torch.int32, device=flag(carry).device)
+
+    def round_():
+        refill(bufs, body(bufs))
+        rounds.add_(1)
+        return flag(bufs) & (rounds < bound)
+    slots = getattr(_FORM, "slots", 1)
+    _FORM.slots = slots * bound
+    try:
+        _capture_node(True, flag(bufs), round_)
+    finally:
+        _FORM.slots = slots
+    return bufs
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_value,
+         masked: bool = False):
     """`lax.cond(pred, true_fn, identity)`: `true_fn(active)` returns a
-    pytree shaped like `false_value`.  In capture form it runs with
-    `active=pred`, which it may use to mask its own work, and a select
-    keeps its result where `pred` holds; otherwise the host reads `pred`
-    and calls `true_fn(None)` only when it holds."""
-    if in_capture_form():
+    pytree shaped like `false_value`.  Inside a `Program`'s capture on the
+    card it runs with `active=None` in the body of an IF node on `pred`,
+    which writes its result over buffers cloned from `false_value`, unless
+    `masked`; elsewhere in capture form it runs with `active=pred`, which
+    it may use to mask its own work, and a select keeps its result where
+    `pred` holds; otherwise the host reads `pred` and calls
+    `true_fn(None)` only when it holds."""
+    if not in_capture_form():
+        return true_fn(None) if bool(pred) else false_value
+    if masked or not _builds_nodes(pred):
         return tree_map(lambda a, b: torch.where(pred, a, b),
                         true_fn(pred), false_value)
-    return true_fn(None) if bool(pred) else false_value
+    out = tree_map(torch.clone, false_value)
+
+    def branch():
+        refill(out, true_fn(None))
+    _capture_node(False, pred, branch)
+    return out
+
+
+# The capture of the `Program` under way on this thread: its device index,
+# memory pool, whether its allocations are routed to the pool by thread
+# (`_route_to_pool`), the body graphs of its conditional nodes, and each
+# body's slot of run counts (`runs`, on the device) with the launch
+# counters' increments of one run (`tallies`, see `settle_counts`).
+def _capture() -> Dict[str, Any]:
+    return getattr(_FORM, "capture", None)
+
+
+def _builds_nodes(flag: torch.Tensor) -> bool:
+    """Whether a loop or branch on `flag` becomes a conditional node: in a
+    `Program`'s capture on the card."""
+    return (_capture() is not None and flag.is_cuda
+            and torch.cuda.is_current_stream_capturing())
+
+
+@functools.cache
+def _cond_lib() -> ctypes.CDLL:
+    from sr_livo_tpu_torch import kernels
+    lib = kernels.load("graph_cond")
+    p, pp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    lib.cond_begin.restype = ctypes.c_int
+    lib.cond_begin.argtypes = [p, ctypes.c_int, p,
+                               ctypes.POINTER(ctypes.c_ulonglong), pp, pp, pp]
+    lib.cond_end.restype = ctypes.c_int
+    lib.cond_end.argtypes = [p, ctypes.c_int, ctypes.c_ulonglong, p, p, p]
+    lib.cond_abort.restype = ctypes.c_int
+    lib.cond_abort.argtypes = [p, p, p]
+    lib.cond_error.restype = ctypes.c_char_p
+    lib.cond_error.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: {lib.cond_error(err).decode()} "
+                           f"(cudaError {err})")
+
+
+def _route_to_pool(cap: Dict[str, Any]) -> None:
+    """Route this thread's allocations to the program's pool from now to
+    the capture's end.  PyTorch routes a capture's allocations by its
+    capture id, which changes when a node's body is captured
+    (`csrc/graph_cond.cu`); the capture's end removes the routing."""
+    if cap["routed"]:
+        return
+    dev, pool = cap["device"], cap["pool"]
+    torch._C._cuda_endAllocateToPool(dev, pool)
+    torch._C._cuda_beginAllocateCurrentThreadToPool(dev, pool)
+    torch._C._cuda_releasePool(dev, pool)    # the capture holds its own use
+    cap["routed"] = True
+
+
+def _stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _capture_node(loop: bool, flag: torch.Tensor, run: Callable) -> None:
+    """A WHILE (`loop`) or IF node on the device bool `flag` in the graph
+    being captured, whose body `run()` captures; for a loop, `run` returns
+    the flag its round wrote.  The body first adds one to its slot of
+    run counts; the launch counters' increments of its capture are taken
+    back and kept with the slot.  No `mark` lands in a body: a node's body
+    may hold no event."""
+    cap = _capture()
+    slot = len(cap["tallies"])
+    if slot >= len(cap["runs"]):
+        raise RuntimeError(f"a program holds at most {len(cap['runs'])} "
+                           "conditional nodes")
+    cap["tallies"].append([])            # the slot, before nested bodies'
+    _route_to_pool(cap)
+    lib = _cond_lib()
+    stream = ctypes.c_void_p(_stream_handle(flag.device))
+    handle = ctypes.c_ulonglong()
+    parent, node, body = ctypes.c_void_p(), ctypes.c_void_p(), \
+        ctypes.c_void_p()
+    _check(lib, lib.cond_begin(stream, int(loop), flag.data_ptr(),
+                               ctypes.byref(handle), ctypes.byref(parent),
+                               ctypes.byref(node), ctypes.byref(body)),
+           "a conditional node")
+    cap["bodies"].append(body.value)
+    into, _MARKS["into"] = _MARKS["into"], None
+    before = _snapshot()
+    try:
+        cap["runs"][slot].add_(1)
+        end_flag = run()
+    except BaseException:
+        lib.cond_abort(stream, parent, node)
+        raise
+    finally:
+        _MARKS["into"] = into
+        cap["tallies"][slot] = _take_back(before)
+    _check(lib, lib.cond_end(stream, int(loop), handle,
+                             end_flag.data_ptr() if loop else None,
+                             parent, node), "a conditional node's body")
+
+
+def _take_back(before: List[Dict[str, int]]) -> list:
+    """Restores the launch counters to `before`; returns what they had
+    gained, [(counter, {key: increment})]."""
+    gained = []
+    for counter, was, per_run in zip(_COUNTERS, before, _PER_RUN):
+        inc = {k: v - was.get(k, 0) for k, v in counter.items()
+               if per_run and v != was.get(k, 0)}
+        if inc:
+            gained.append((counter, inc))
+            counter.update(was)
+    return gained
+
+
+def _fold(runs: torch.Tensor, tallies: list) -> None:
+    """Adds each body's increments times its runs so far to the launch
+    counters and zeroes the runs (reads them: a wait)."""
+    if not tallies:
+        return
+    n = runs[:len(tallies)].tolist()
+    runs.zero_()
+    for times, tally in zip(n, tallies):
+        for counter, inc in tally:
+            for k, v in inc.items():
+                counter[k] = counter.get(k, 0) + v * int(times)
+
+
+_PROGRAMS: "weakref.WeakSet[Program]" = weakref.WeakSet()
+_MAX_BODIES = 16      # conditional nodes a program may hold
+
+
+def settle_counts() -> None:
+    """Brings the launch counters up to date with the runs of every live
+    program's conditional bodies so far (waits for those programs'
+    devices); nothing to do where no program holds such a node."""
+    for prog in list(_PROGRAMS):
+        prog.settle()
 
 
 # In-graph stage events: with `stage_events(True)` when a program is
@@ -218,13 +420,15 @@ class DeviceCount:
     capture of a program with stage events on, whose replays then add
     again; a program's call on the CPU with them on; a `counting()`
     block), so an untraced program's graph holds no add.  `added()` is
-    the number of adds that counted, a launch counter (a replay adds its
-    capture's).  The buffers are made outside any capture: a `Program`
+    the number of adds that counted, not a launch count: an add in a
+    WHILE node's body counts as the node's bound, as over the masked
+    rounds the node replaces, and a replay adds its capture's.  The
+    buffers are made outside any capture: a `Program`
     makes its device's before it captures (`register_device_count`)."""
 
     def __init__(self):
         self._bufs: Dict[torch.device, torch.Tensor] = {}
-        self._added = register_counter({"adds": 0})
+        self._added = register_counter({"adds": 0}, per_run=False)
 
     def buffer(self, device: torch.device) -> torch.Tensor:
         buf = self._bufs.get(device)
@@ -237,14 +441,21 @@ class DeviceCount:
         """Add `value` (a 0-d bool or integer tensor) where it counts."""
         if _MARKS["count"]:
             self.buffer(value.device).add_(value.reshape(1))
-            self._added["adds"] += 1
+            self._added["adds"] += getattr(_FORM, "slots", 1)
+
+    def add_one(self, device: torch.device) -> None:
+        """Add 1 on `device` where it counts."""
+        if _MARKS["count"]:
+            self.buffer(device).add_(1)
+            self._added["adds"] += getattr(_FORM, "slots", 1)
 
     def read(self) -> int:
         """The count over every device (waits for each)."""
         return sum(int(b.item()) for b in self._bufs.values())
 
     def added(self) -> int:
-        """How many adds counted (on the host; no wait)."""
+        """How many adds counted, as the class says (on the host; no
+        wait)."""
         return self._added["adds"]
 
 
@@ -338,17 +549,42 @@ def _libcuda() -> ctypes.CDLL:
     lib.cuGraphGetNodes.restype = ctypes.c_int
     lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.restype = ctypes.c_int
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-def graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
-    """Nodes of a captured graph (`cuGraphGetNodes` of libcuda)."""
-    count = ctypes.c_size_t(0)
-    err = _libcuda().cuGraphGetNodes(graph.raw_cuda_graph(), None,
-                                     ctypes.byref(count))
+def _nodes(raw: int, array=None) -> int:
+    count = ctypes.c_size_t(0 if array is None else len(array))
+    err = _libcuda().cuGraphGetNodes(raw, array, ctypes.byref(count))
     if err != 0:
         raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
     return count.value
+
+
+def graph_nodes(graph) -> int:
+    """Nodes of a captured graph (a `torch.cuda.CUDAGraph`, or the raw
+    handle of a conditional node's body), a conditional node counting
+    one (`cuGraphGetNodes` of libcuda)."""
+    raw = graph if isinstance(graph, int) else graph.raw_cuda_graph()
+    return _nodes(raw)
+
+
+def node_types(raw: int) -> List[int]:
+    """The CUgraphNodeType of each node of the graph with raw handle `raw`
+    (0 kernel, 1 memcpy, 2 memset, 3 host, 5 empty, 6 event wait, 7 event
+    record, 10 memory allocation, 11 free, 13 conditional)."""
+    array = (ctypes.c_void_p * _nodes(raw))()
+    _nodes(raw, array)
+    out = []
+    for node in array:
+        kind = ctypes.c_int()
+        err = _libcuda().cuGraphNodeGetType(node, ctypes.byref(kind))
+        if err != 0:
+            raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {err}")
+        out.append(kind.value)
+    return out
 
 
 class Program:
@@ -369,6 +605,9 @@ class Program:
         self.replays = 0
         self.capture_s = 0.0       # host seconds of the last capture
         self.nodes = 0             # nodes of the captured graph
+        self.bodies: list = []     # raw handles of its conditional bodies
+        self._runs = None          # runs of each body (device int64)
+        self._tallies: list = []   # launch counts of one run of each body
         self.marks: list = []      # (stage, event) recorded in the graph
 
     def body(self):
@@ -397,6 +636,13 @@ class Program:
         self.replays += 1
         return self.outputs
 
+    def settle(self) -> None:
+        """Adds its conditional bodies' launches since the last settle to
+        the launch counters (`settle_counts`); waits for its device."""
+        if self._tallies:
+            torch.cuda.synchronize(self.device)
+            _fold(self._runs, self._tallies)
+
     def stage_ms(self) -> Dict[str, float]:
         """Device ms of each stage marked in the graph (`mark`) in the last
         replay; waits for it.  Empty when it was captured without stage
@@ -412,11 +658,15 @@ class Program:
         if _MARKS["on"]:
             for count in _DEVICE_COUNTS:
                 count.buffer(self.device)
+        if self._runs is None:
+            self._runs = torch.zeros(_MAX_BODIES, dtype=torch.int64,
+                                     device=self.device)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        marks = []
+        pool = torch.cuda.graph_pool_handle()
+        marks, bodies, tallies = [], [], []
         counted = _MARKS["count"]
         try:
             with torch.cuda.stream(side), capture_form():
@@ -426,18 +676,25 @@ class Program:
                 self.fn(tree_map(torch.clone, self.state), self.inputs)
                 _restore(before)
                 # "thread_local": the pipeline's feeder thread may upload
-                # the next frame meanwhile; a private pool (pool=None)
-                graph.capture_begin(capture_error_mode="thread_local")
+                # the next frame meanwhile; a private pool, whose handle a
+                # conditional node's body allocates from (`_route_to_pool`)
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                cap = _FORM.capture = {"device": self.device.index,
+                                       "pool": pool, "routed": False,
+                                       "bodies": bodies, "runs": self._runs,
+                                       "tallies": tallies}
                 _MARKS["into"] = marks if _MARKS["on"] else None
                 _MARKS["count"] = _MARKS["on"]
                 try:
                     outputs = self.body()
                     mark("end")
                 except BaseException:
-                    _end_failed_capture(graph)
+                    _end_failed_capture(graph, cap)
                     raise
                 finally:
                     _MARKS["into"] = None
+                    _FORM.capture = None
                 graph.capture_end()
             after = _snapshot()
         finally:
@@ -449,7 +706,10 @@ class Program:
                         if a[k] != b.get(k, 0)}
                        for a, b in zip(after, before)]
         self.graph, self.outputs, self.marks = graph, outputs, marks
-        self.nodes = graph_nodes(graph)
+        self.nodes, self.bodies = graph_nodes(graph), bodies
+        self._tallies = tallies
+        if tallies:
+            _PROGRAMS.add(self)
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
 
@@ -477,11 +737,15 @@ def call(programs: Dict[Any, Program], key, fn: Callable, state, inputs,
     return prog.state, outputs
 
 
-def _end_failed_capture(graph: "torch.cuda.CUDAGraph") -> None:
+def _end_failed_capture(graph: "torch.cuda.CUDAGraph",
+                        cap: Dict[str, Any]) -> None:
     """End a capture whose body raised, so the stream leaves capture mode;
     the body's error is the one to report, so the invalidated capture's
-    own error is not."""
+    own error is not.  An invalidated capture's end raises before it
+    removes the routing of allocations to its pool, which, routed by
+    thread, would take this thread's later allocations."""
     try:
         graph.capture_end()
     except RuntimeError:
-        pass
+        if cap["routed"]:
+            torch._C._cuda_endAllocateToPool(cap["device"], cap["pool"])

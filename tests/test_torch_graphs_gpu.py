@@ -23,20 +23,29 @@ machine with a GPU and no JAX:
     its place: the state is as it was;
   * a state tensor replaced by eager code is copied into the program's
     buffer before the next replay, a new voxel map (an eviction's
-    `compact_map`) among them.
+    `compact_map`) among them;
+  * the steady step with its IEKF rounds in a WHILE node and its retry in
+    an IF node replays to the bits of the masked form and of the eager
+    function over sweeps that converge early, run to the bound, take the
+    retry and fail, launching only the live rounds; its node bodies hold
+    no host, event or allocation node.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from sr_livo_tpu_torch.config import LivoConfig
 from sr_livo_tpu_torch.models import lio
+from sr_livo_tpu_torch.models.odometry import (LioEngine, StepInputs,
+                                               WireSweep)
 from sr_livo_tpu_torch.models.vision import VisionModule
 from sr_livo_tpu_torch.ops import plane_fit
 from sr_livo_tpu_torch.ops import voxel_map as vm
 from sr_livo_tpu_torch.pipeline import LivoPipeline, run_streams
 from sr_livo_tpu_torch.runtime import synthetic
-from sr_livo_tpu_torch.utils import graphs
+from sr_livo_tpu_torch.utils import graphs, lie
 
 pytestmark = pytest.mark.gpu
 
@@ -139,6 +148,7 @@ def test_replay_matches_eager_function(cuda, sim, cache):
         pipe = run_streams(LivoPipeline(cfg, vision=vision, device=cuda),
                            sim)
         torch.cuda.synchronize()
+    graphs.settle_counts()
     assert {"vision_frame[remapped=False]", "lio_step[init]",
             "lio_step[steady]", "color_insert"} <= check.names
     assert check.calls > 20 and not check.differ, check.differ
@@ -200,14 +210,17 @@ def test_launch_counters_advance_per_replay(cuda):
     prog = _iekf_program(cuda, vmap, keypts, valid, [0.1, -0.05, 0.05])
     rounds = ICP["max_iters"] + 1
     for _ in range(2):
+        graphs.settle_counts()
         before = dict(plane_fit.launches), dict(lio.counts)
         _, summary = prog()
-        assert bool(summary.success) and 1 < int(summary.iterations) < rounds
-        # every round of the masked loop launches (a dead round searches
-        # no keypoint); the counters count the rounds
+        graphs.settle_counts()
+        live = int(summary.iterations)
+        assert bool(summary.success) and 1 < live < rounds
+        # the WHILE node launches the live rounds only, each searching
+        # once; the counters count what ran
         assert plane_fit.launches["knn_plane_rows"] - before[0][
-            "knn_plane_rows"] == rounds
-        assert lio.counts["iterations"] - before[1]["iterations"] == rounds
+            "knn_plane_rows"] == live
+        assert lio.counts["iterations"] - before[1]["iterations"] == live
         assert lio.counts["updates"] - before[1]["updates"] == 1
     assert prog.captures == 1 and prog.nodes > 1 and prog.replays == 2
 
@@ -317,15 +330,19 @@ def test_stage_events_add_only_their_marks(cuda, sim):
     `stage_ms` names the nine ranges, and `graphs.stage_log` holds them
     for each of its replays.  The step program with them on counts its
     IEKF's active rounds in the steady phase, at most the rounds it
-    counted, fewer than the rounds run."""
+    counted, all of them launched (and no other), fewer than the rounds
+    run in both phases."""
     off = _livo(cuda, sim, False)
     n_log = len(graphs.stage_log())
+    graphs.settle_counts()
     active0, run0 = lio.active_rounds.read(), lio.counts["iterations"]
-    added0 = lio.active_rounds.added()
+    added0, launched0 = lio.active_rounds.added(), lio.launched_rounds.read()
     on = _livo(cuda, sim, True)
+    graphs.settle_counts()
     active, added, run = (lio.active_rounds.read() - active0,
                           lio.active_rounds.added() - added0,
                           lio.counts["iterations"] - run0)
+    launched = lio.launched_rounds.read() - launched0
     (p_off,) = off.vision.programs.values()
     (p_on,) = on.vision.programs.values()
     assert p_off.marks == [] and p_off.stage_ms() == {}
@@ -336,7 +353,7 @@ def test_stage_events_add_only_their_marks(cuda, sim):
     # a replay still running at its program's next call is left out
     assert 0 < len(log) <= p_on.replays and log[-1] == ms
     assert all(list(d) == VISION_RANGES for d in log)
-    assert 0 < active <= added < run
+    assert 0 < active <= added and active == launched < run
     for key, prog in off.engine.programs.items():
         assert on.engine.programs[key].nodes > prog.nodes
 
@@ -363,3 +380,142 @@ def test_spans_on_the_card(cuda, sim):
         assert a <= b and a >= s.start - 50_000        # 50 us
     ends = [s.device for s in sorted(dev, key=lambda s: s.start)]
     assert all(x[1] <= y[0] + 50_000 for x, y in zip(ends, ends[1:]))
+
+
+@contextlib.contextmanager
+def _masked_loops():
+    """Within the block, `graphs.while_loop` and `graphs.cond` keep masked
+    rounds and both branches (what a capture records over a process
+    group): for the capture of the masked form the tests compare with."""
+    orig_w, orig_c = graphs.while_loop, graphs.cond
+    graphs.while_loop = lambda *a, **k: orig_w(*a, **{**k, "masked": True})
+    graphs.cond = lambda *a, **k: orig_c(*a, **{**k, "masked": True})
+    try:
+        yield
+    finally:
+        graphs.while_loop, graphs.cond = orig_w, orig_c
+
+
+def _variants(state, sweep):
+    """Priors and sweeps around a steady step: the recorded one, its
+    prior moved by 0.1-1.6 m or turned by 2-20 degrees (more rounds, up to
+    the bound), its points cut to a half down to 4 (weak solves, the
+    retry, too few residuals)."""
+    out = [(state, sweep)]
+    for dx in (0.1, 0.3, 0.6, 1.0, 1.6):
+        out.append((state._replace(p=state.p + torch.tensor(
+            [dx, -dx / 2, 0.0], device=state.p.device)), sweep))
+    for deg in (2.0, 5.0, 10.0, 20.0):
+        half = np.radians(deg) / 2
+        turn = torch.tensor([np.cos(half), 0.0, 0.0, np.sin(half)],
+                            dtype=state.q.dtype, device=state.q.device)
+        out.append((state._replace(q=lie.quat_mul(state.q, turn)), sweep))
+    wire = isinstance(sweep, WireSweep)
+    valid = sweep.pts_q[:, 3] >= 0 if wire else sweep.pt_valid
+    n = int(valid.sum())
+    for keep in (n // 2, n // 4, n // 8, n // 16, 4):
+        if wire:
+            pts = sweep.pts_q.clone()
+            pts[keep:, 3] = -1                   # padding from row `keep`
+            out.append((state, sweep._replace(pts_q=pts)))
+        else:
+            cut = sweep.pt_valid.clone()
+            cut[keep:] = False
+            out.append((state, sweep._replace(pt_valid=cut)))
+    return out
+
+
+def test_conditional_step_matches_masked_and_eager(cuda, sim):
+    """The steady step in its conditional form (the IEKF rounds a WHILE
+    node, the retry an IF node) replays to the bits of the same step
+    captured with masked rounds and of its function run eagerly, over
+    sweeps that converge early, run to the bound, take the retry and fail
+    on too few residuals.  Its node bodies hold no host, event or
+    allocation node; it launches only the live rounds
+    (`lio.launched_rounds` equals `lio.active_rounds`) and the retry's
+    association only where taken, where the masked form launches every
+    round up to the bound (`added()`) and both associations; the launch
+    counters, settled, say the same."""
+    cfg = small_cfg(True)
+    cfg.retry_wider_neighborhood = True
+    cfg.icp.min_num_residuals = 40              # cut sweeps solve weakly
+    pipe = run_streams(LivoPipeline(cfg, device=cuda), sim)
+    (prog,) = [p for k, p in pipe.engine.programs.items()
+               if k[0] == "steady"]
+    frame_id = pipe.index_frame
+    base_state = graphs.tree_map(torch.clone, pipe.state)
+    vmap = graphs.tree_map(torch.clone, pipe.voxel_map)
+    base_sweep = graphs.tree_map(torch.clone, prog.inputs.sweep)
+    bound = cfg.icp.num_iters_icp + 1
+
+    engines = {"conditional": LioEngine(cfg, device=cuda),
+               "masked": LioEngine(cfg, device=cuda)}
+    eager_fn = engines["conditional"].step_fn("steady")
+    cases, seen, counted = set(), [], {f: [0] * 6 for f in engines}
+    graphs.stage_events(True)
+    try:
+        for state, sweep in _variants(base_state, base_sweep):
+            prev = ((state.q, state.p), (state.q, state.p))
+            ups = lio.counts["updates"]
+            with graphs.counts_kept():
+                (e_state, e_map), e_out = eager_fn(
+                    (graphs.tree_map(torch.clone, state),
+                     graphs.tree_map(torch.clone, vmap)),
+                    StepInputs(sweep, prev if engines["conditional"]
+                               .use_cv_init else None))
+                retried = lio.counts["updates"] - ups == 2
+            want = e_out._replace(state=e_state, voxel_map=e_map)
+            it, ok = int(want.summary.iterations), bool(want.summary.success)
+            seen.append((it, ok, retried, int(want.summary.num_residuals)))
+            cases |= {name for name, hit in (
+                ("early", ok and not retried and it < bound),
+                ("bound", it == bound), ("retry", retried),
+                ("few", not ok)) if hit}
+            for form, engine in engines.items():
+                graphs.settle_counts()
+                before = (lio.launched_rounds.read(),
+                          lio.active_rounds.read(),
+                          lio.active_rounds.added(),
+                          lio.counts["iterations"], lio.counts["updates"],
+                          plane_fit.launches["knn_plane_assoc"])
+                with (_masked_loops() if form == "masked"
+                      else contextlib.nullcontext()):
+                    got = engine.step(graphs.tree_map(torch.clone, state),
+                                      graphs.tree_map(torch.clone, vmap),
+                                      sweep, frame_id)
+                torch.cuda.synchronize()
+                graphs.settle_counts()
+                after = (lio.launched_rounds.read(),
+                         lio.active_rounds.read(),
+                         lio.active_rounds.added(),
+                         lio.counts["iterations"], lio.counts["updates"],
+                         plane_fit.launches["knn_plane_assoc"])
+                for i in range(6):
+                    counted[form][i] += after[i] - before[i]
+                pairs = zip(graphs.tree_leaves(got), graphs.tree_leaves(want))
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in pairs), (form, it, ok, retried)
+    finally:
+        graphs.stage_events(False)
+    assert cases == {"early", "bound", "retry", "few"}, seen
+
+    # the host's launch counters, settled, count what the device ran: a
+    # round launched, an association per update that ran
+    launched, active, added, rounds, updates, assoc = counted["conditional"]
+    assert 0 < launched == active == rounds < added
+    assert len(seen) < updates == assoc < 2 * len(seen)
+    m_launched, m_active, m_added, m_rounds, m_updates, m_assoc = counted[
+        "masked"]
+    assert m_launched == m_added == m_rounds == added and m_active == active
+    assert m_updates == m_assoc == 2 * len(seen)
+
+    (cond_prog,) = engines["conditional"].programs.values()
+    (masked_prog,) = engines["masked"].programs.values()
+    # the first update's loop, the retry, and the retry's loop
+    assert len(cond_prog.bodies) == 3 and not masked_prog.bodies
+    allowed = {0, 1, 2, 5, 13}   # kernel, memcpy, memset, empty, conditional
+    for body in cond_prog.bodies:
+        assert set(graphs.node_types(body)) <= allowed
+    captured = cond_prog.nodes + sum(graphs.graph_nodes(b)
+                                     for b in cond_prog.bodies)
+    assert captured < masked_prog.nodes

@@ -4,10 +4,12 @@ models.vision.VisionModule._gated_insert) on the CPU, against the JAX
 package's jitted `LioEngine.step` and `color_insert`.
 
 On the card each is one CUDA graph replay whose loops run masked rounds
-up to proven bounds (utils/graphs.py); on the CPU the same function runs
-directly and stops each loop where the JAX `while_loop` does.  These
-tests hold both forms: the eager one, and the capture form
-(`graphs.capture_form()`), which runs every round as the graph does.
+up to proven bounds, or in the step's IEKF and retry conditional nodes
+(utils/graphs.py; tests/test_torch_graphs_gpu.py holds those against
+the masked form); on the CPU the same function runs directly and stops
+each loop where the JAX `while_loop` does.  These tests hold both forms:
+the eager one, and the capture form (`graphs.capture_form()`), which
+runs every round as the masked graph does.
 
   * step parity, in lockstep: every sweep of a short run (the rig and
     tolerances of test_torch_odometry.py: phases `init`, `steady` and
