@@ -15,8 +15,9 @@
    the numbers below compare what it gives with what the program gave,
    the largest over the segments:
 
-     pose_m       widest gap of a frame's published position (the LIO
-                  step), m
+     pose_m       widest gap of a published position (the LIO step), m,
+                  over every sweep's pose: gap-fill sweeps without an
+                  image too
      rot_rad      widest gap of its orientation, rad
      map_rows     share of voxel-map rows held by one side only, after the
                   segment's inserts
@@ -24,9 +25,11 @@
      color_rows   share of colored-map registry rows held by one side only
      color_m      widest gap of a registry position held by both
      track_px     widest gap of a track's pixel, tracks live on both sides
-                  (the vision frame: LK, RANSAC, the track upkeep)
+                  in one slot on one map point (the vision frame: LK,
+                  RANSAC, the track upkeep)
 
-   A frame posed on one side only reads as infinite.
+   A frame posed on one side only, or with another number of poses,
+   reads as infinite.
 
 2. Against the generator's ground truth, which no code of the port
    computes:
@@ -61,7 +64,9 @@ class Segment:
     frames: list = field(default_factory=list)      # traffic.Frame
     pre: object = None               # snapshot before the first frame
     post: object = None              # snapshot after the last pose
-    records: list = field(default_factory=list)     # program FrameRecords
+    # the program's FrameRecords: every pose of its frames, None for a
+    # frame that yields none
+    records: list = field(default_factory=list)
 
 
 def plan(rng: np.random.Generator, n_segments: int, length: int,
@@ -172,9 +177,20 @@ def _color_numbers(a, b, cell: float) -> Dict[str, float]:
     return out
 
 
-def _track_numbers(a, b) -> Dict[str, float]:
+def _track_numbers(a, b, reg_a, reg_b, cell: float) -> Dict[str, float]:
+    """A track is held by both sides where it is live in the same slot on
+    the same map point.  A track names its point by a registry row id, and
+    row ids are each side's own: an insert hands them out in order, so a
+    row that one side holds and the other does not (`color_rows`) shifts
+    every later id by one.  The point is named by its dedup cell, as
+    `_color_numbers` matches rows."""
     (id_a, px_a, on_a), (id_b, px_b, on_b) = a, b
-    live = on_a & on_b & (id_a == id_b)
+
+    def points(reg, ids):
+        rows = ids.long().clamp(0, reg.shape[0] - 1)
+        return torch.from_numpy(_cell_keys(reg[rows, 6:9], cell))
+
+    live = on_a & on_b & (points(reg_a, id_a) == points(reg_b, id_b))
     gap = (px_a - px_b).abs().amax(-1)
     return {"track_px": float(gap[live].max()) if bool(live.any()) else 0.0}
 
@@ -190,12 +206,14 @@ def _quat_angle(qa: np.ndarray, qb: np.ndarray) -> float:
 def pose_numbers(judged: List[Optional[object]],
                  ref: List[Optional[object]]) -> Dict[str, float]:
     """`pose_m` and `rot_rad` of the judged side's records against the
-    reference's, frame by frame."""
+    reference's, pose by pose.  Two poses of one sweep carry the same
+    time: records out of step read as infinite."""
     if len(judged) != len(ref) or not judged:
         return {"pose_m": math.inf, "rot_rad": math.inf}
     pose = rot = 0.0
     for a, b in zip(judged, ref):
-        if (a is None) != (b is None):
+        if (a is None) != (b is None) or (a is not None
+                                          and a.time != b.time):
             return {"pose_m": math.inf, "rot_rad": math.inf}
         if a is None:
             continue
@@ -217,13 +235,17 @@ def compare(seg_a: tuple, seg_b: tuple, cell: float) -> Dict[str, float]:
     if "color" in view_a and "color" in view_b:
         out.update(_color_numbers(view_a["color"], view_b["color"], cell))
     if "tracks" in view_a and "tracks" in view_b:
-        out.update(_track_numbers(view_a["tracks"], view_b["tracks"]))
+        out.update(_track_numbers(view_a["tracks"], view_b["tracks"],
+                                  view_a["color"][0], view_b["color"][0],
+                                  cell))
     return out
 
 
 def run_reference(seg: Segment, device, configs: dict, tf32: bool = False):
     """The reference over a segment from its first copy: (records, view
-    at the end)."""
+    at the end).  The records are every pose of the segment's frames in
+    order, a frame that yields none as one None, as the harness keeps the
+    program's."""
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     pipe = snapshot.restore(seg.pre, device, configs)
@@ -235,8 +257,7 @@ def run_reference(seg: Segment, device, configs: dict, tf32: bool = False):
         for f in seg.frames:
             k = len(pipe.records)
             feed(pipe, f)
-            recs = pipe.records
-            records.append(recs[-1] if len(recs) > k else None)
+            records.extend(pipe.records[k:] or [None])
         return records, view(pipe)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,

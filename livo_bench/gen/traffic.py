@@ -6,10 +6,14 @@ IMU, LiDAR and camera streams from the still start (the IMU's static
 initialization) through one lap of a trajectory whose every frequency
 divides the lap, renders the images on the card, and groups the messages
 by frame: frame k's group holds everything a robot's driver has handed
-over once frame k can be cut (its image, the LiDAR packet that covers the
-image time, the IMU samples up to that packet's end).  `Traffic.frames()`
-yields the prefix and then the lap again and again with its stamps
-shifted by the lap length, so the stream never runs out.
+over once image k's sweeps can be cut (its image, the LiDAR packets up to
+and including the first one whose points pass the image time, the IMU
+samples up to that packet's end).  The LiDAR's rate is a whole multiple
+of the camera's; where it is higher, the sweep cutter cuts gap-fill
+sweeps without an image between the image-aligned ones, so one frame
+yields several sweeps.  `Traffic.frames()` yields the prefix and then the
+lap again and again with its stamps shifted by the lap length, so the
+stream never runs out.
 
 Frozen from the port at commit f22c487785a4 (later changes to the port do
 not change them): the calibrations, the room world and the trajectories
@@ -18,6 +22,13 @@ of `sr_livo_tpu_torch/runtime/accuracy_gate.py` (`R3_CALIB`, `NTU_CALIB`,
 `sr_livo_tpu_torch/runtime/native.py::process_livox_numpy`, applied to
 each packet as the bag path of the accuracy gate writes and reads it
 (`accuracy_gate.write_bag`, `drivers.CloudProcessing.process_livox`).
+Frozen from the port at commit 2394058cd569: the spinning driver filter
+of `native.py::process_spinning_numpy`, applied packet by packet with the
+previous packet's end time carried over, as
+`drivers.CloudProcessing.process_cloud` applies it to the gate's Ouster
+bags (`accuracy_gate.write_bag`, `bag_writer.ser_pointcloud2_ouster`:
+offsets in ns from the packet's stamp, ring = index mod the ring count,
+times decoded as `native.decode_xyzt_numpy` does).
 The one change: roll and pitch swing at frequencies that divide the lap
 (the gate's 0.9 and 1.1 rad/s do not), so the lap's seam is smooth.
 """
@@ -130,6 +141,103 @@ def livox_packet(chunk: np.ndarray, lidar_options) -> np.ndarray:
                         lidar_options.blind, stamp)
 
 
+def spinning_filter(xyzt: np.ndarray, ring, n_scans: int, scan_rate: int,
+                    point_filter_num: int, blind: float, header_time: float,
+                    given_offset_time: bool, last_end_time: float) -> tuple:
+    """The spinning driver's point filter (`native.process_spinning_numpy`):
+    per-ring yaw time synthesis where no per-point time is given, time
+    sort, decimation by `point_filter_num`, the blind range and the
+    monotonic-time gate.  Returns ((m, 4) float64 points with absolute
+    times, the new last end time)."""
+    xyzt = np.asarray(xyzt, np.float32)
+    n = xyzt.shape[0]
+    x, y, z = (xyzt[:, j].astype(np.float64) for j in range(3))
+    if given_offset_time:
+        t_rel = xyzt[:, 3].astype(np.float64)
+    else:
+        omega = 0.361 * scan_rate
+        layer = (np.asarray(ring, np.int64) if ring is not None
+                 else np.zeros(n, np.int64))
+        # libm's atan2 point by point, as the driver's C++ calls it
+        yaw = np.array([math.atan2(b, a) for a, b in zip(x, y)],
+                       np.float64).reshape(n) * 57.2957
+        t_rel = np.zeros(n)
+        for lay in np.unique(layer[(layer >= 0) & (layer < n_scans)]):
+            sel = np.nonzero(layer == lay)[0]
+            y0 = yaw[sel[0]]
+            d = np.where(yaw[sel] <= y0, (y0 - yaw[sel]) / omega,
+                         (y0 - yaw[sel] + 360.0) / omega)
+            d[0] = 0.0
+            t_rel[sel] = d
+    order = np.argsort(t_rel, kind="stable")
+    dt_last = t_rel[order[-1]] if n else 0.0
+    keep = np.ones(n, bool)
+    if point_filter_num > 1:
+        keep = np.arange(n) % point_filter_num == 0
+    o = order
+    ts = header_time + t_rel[o] / 1000.0
+    keep &= ((x[o] * x[o] + y[o] * y[o] + z[o] * z[o] > blind * blind)
+             & (ts > last_end_time))
+    out = np.stack([x[o], y[o], z[o], ts], axis=1)[keep]
+    return out, header_time + dt_last / 1000.0
+
+
+# the driver's time_unit -> milliseconds a unit (drivers.CloudProcessing)
+TIME_UNIT_MS = {0: 1e3, 1: 1.0, 2: 1e-3, 3: 1e-6}
+
+
+def ouster_packet(chunk: np.ndarray, lidar_options, n_rings: int,
+                  last_end_time: float) -> tuple:
+    """A simulated packet as the Ouster driver hands it over: stamped at
+    its first point, offsets in whole nanoseconds (field `t`, decoded to
+    float32 milliseconds), ring = index mod `n_rings`.  Returns (points,
+    the new last end time)."""
+    stamp = float(chunk[0, 3])
+    n = chunk.shape[0]
+    t_ns = np.round((chunk[:, 3] - stamp) * 1e9).astype(np.uint32)
+    xyzt = np.empty((n, 4), np.float32)
+    xyzt[:, :3] = chunk[:, :3].astype(np.float32)
+    xyzt[:, 3] = t_ns.astype(np.float64) * TIME_UNIT_MS.get(
+        lidar_options.time_unit, 1.0)
+    # a per-point time counts as given where the last point's is above 0;
+    # else the driver takes the ring field and synthesizes times by yaw
+    given = bool(xyzt[-1, 3] > 0)
+    ring = None if given else (np.arange(n) % n_rings).astype(np.int32)
+    return spinning_filter(xyzt, ring, lidar_options.n_scans,
+                           lidar_options.scan_rate,
+                           lidar_options.point_filter_num,
+                           lidar_options.blind, stamp, given, last_end_time)
+
+
+def lidar_packets(chunks: list, lidar: dict, lidar_options) -> list:
+    """(index of the chunk on the LiDAR's packet grid, filtered points) of
+    every packet that keeps a point, through the mix's driver."""
+    out = []
+    last_end = -1.0
+    for j, c in enumerate(chunks):
+        if not c.shape[0]:
+            continue               # nothing is handed over
+        if lidar["kind"] == "livox":
+            pts = livox_packet(c, lidar_options)
+        else:
+            pts, last_end = ouster_packet(c, lidar_options,
+                                          lidar["n_rings"], last_end)
+        if pts.shape[0]:
+            out.append((j, pts))
+    return out
+
+
+def lidar_directions(lidar: dict) -> tuple:
+    """The mix's LiDAR as a direction table and each ray's sweep phase."""
+    if lidar["kind"] == "livox":
+        return synthetic.lidar_directions_livox(lidar["n_az"], lidar["n_el"])
+    if lidar["kind"] == "ouster":
+        return synthetic.lidar_directions_spinning(
+            lidar["n_az"], lidar["n_rings"],
+            ring_stagger=lidar["ring_stagger"])
+    raise ValueError(f"lidar kind {lidar['kind']!r}")
+
+
 def noise_seed(seed: int) -> int:
     """A 32-bit seed for numpy's RandomState from any whole number."""
     return int(np.random.SeedSequence(abs(int(seed))).generate_state(1)[0])
@@ -207,21 +315,22 @@ def build(mix: dict, lidar_options, seed: int, device="cuda") -> Traffic:
         if abs(lap_s * r - round(lap_s * r)) > 1e-9:
             raise ValueError(f"the lap is no whole number of {name} periods")
     img_dt, lidar_dt = 1.0 / rates["camera"], 1.0 / rates["lidar"]
-    if abs(img_dt - lidar_dt) > 1e-12:
-        raise ValueError("one image per LiDAR packet is assumed")
+    per_image = rates["lidar"] / rates["camera"]
+    if per_image < 1 or abs(per_image - round(per_image)) > 1e-9:
+        raise ValueError("the LiDAR's rate is no whole multiple of the "
+                         "camera's")
     k0 = int(math.ceil((lap_start - IMAGE_T0) / img_dt - 1e-9))
     n_lap = int(round(lap_s / img_dt))
-    # frame k's image lies in LiDAR packet k + 1 (IMAGE_T0 - LIDAR_T0 is
-    # within one packet); the stream has to reach packet k0 + n_lap
-    duration = LIDAR_T0 + (k0 + n_lap + 1) * lidar_dt + 0.05
+    # image k lies in LiDAR packet first + k * per_image; the stream has to
+    # reach the packet of the lap's last image
+    first = int(math.floor((IMAGE_T0 - LIDAR_T0) / lidar_dt + 1e-9))
+    last = first + (k0 + n_lap - 1) * int(round(per_image))
+    duration = LIDAR_T0 + (last + 1) * lidar_dt + 0.05
     calib = (CALIBS[mix["calib"]] if isinstance(mix["calib"], str)
              else {k: np.asarray(v) if isinstance(v, list) else v
                    for k, v in mix["calib"].items()})
     traj = trajectory(mix["trajectory"])
-    lidar = mix["lidar"]
-    if lidar["kind"] != "livox":
-        raise ValueError(f"lidar kind {lidar['kind']!r}")
-    dirs = synthetic.lidar_directions_livox(lidar["n_az"], lidar["n_el"])
+    dirs = lidar_directions(mix["lidar"])
     room = world(mix["world"], device=device)
     sim = synthetic.simulate(
         duration=duration, imu_rate=rates["imu"], sweep_rate=rates["lidar"],
@@ -256,18 +365,23 @@ def build(mix: dict, lidar_options, seed: int, device="cuda") -> Traffic:
         torch.cuda.synchronize()
     render_s = _time.perf_counter() - t0
 
-    packets = [livox_packet(c, lidar_options) for c in sim.lidar_chunks
-               if c.shape[0]]
-    # frame k: everything up to the end of the packet that holds image k
+    packets = lidar_packets(sim.lidar_chunks, mix["lidar"], lidar_options)
+    # frame k: its image, the packets up to the first whose points pass
+    # the image time, the IMU samples up to that packet's end
     frames, imu_i, pkt_i = [], 0, 0
     for k in range(k0 + n_lap):
         tc, img = images[k]
-        end = LIDAR_T0 + (k + 2) * lidar_dt - 1e-9
         ev = []
-        while pkt_i < len(packets) and packets[pkt_i][-1, 3] <= end:
-            ev.append((float(packets[pkt_i][-1, 3]), "pts",
-                       packets[pkt_i]))
+        end = None
+        while end is None and pkt_i < len(packets):
+            j, pts = packets[pkt_i]
+            ev.append((float(pts[-1, 3]), "pts", pts))
             pkt_i += 1
+            if pts[-1, 3] > tc:
+                end = LIDAR_T0 + (j + 1) * lidar_dt - 1e-9
+        if end is None:
+            raise ValueError(f"the stream ends before image {k}'s sweeps "
+                             "can be cut")
         while imu_i < len(sim.imu) and sim.imu[imu_i][0] <= end:
             ev.append((sim.imu[imu_i][0], "imu", sim.imu[imu_i]))
             imu_i += 1

@@ -16,9 +16,11 @@ deployment) and a traffic mix (`traffic/<name>.json`).  The run
   3. measures for `seconds`: one frame in flight.  A frame's messages are
      handed over (`push_imu`, `push_points`, `push_image`), the frames
      that can be cut are processed (`process_available`), and the frame's
-     pose is read to the host (`records`) before the next frame is handed
-     over.  A frame's time runs from its hand-over to its pose on the
-     host;
+     poses are read to the host (`records`) before the next frame is
+     handed over.  Where the LiDAR runs faster than the camera, a frame
+     yields several sweeps (gap-fill sweeps without an image before the
+     image-aligned one), and each sweep's pose counts.  A frame's time
+     runs from its hand-over to its last pose on the host;
   4. reads the peak memory, and with `trace` the per-layer numbers;
   5. frees the program and checks segments of the window's frames
      against the plain reference, and the window's poses against the
@@ -37,7 +39,7 @@ import math
 import os
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -163,22 +165,27 @@ def frame_class(dense: bool, rendered: bool) -> str:
     return "rendered" if rendered else "plain"
 
 
+STEP_RANGE = "livo_bench.stage.lio_step"
+
+
 class Roofline:
     """The plane kernel's launches in sampled frames, taken as
-    `chip_smoke.py::LastCapture` takes them (at f22c487785a4): before the
-    LIO step program's call, its state and inputs are cloned on the card
-    (a copy on the card costs the traced frame far less than one to the
-    host);
-    after the window its function runs once on the clones in capture
-    form (each loop round and both branches, as the graph's launches)
-    with the kernel's entries spied, and each launch's inputs are counted
-    by `gen/roofline.py` in order."""
+    `chip_smoke.py::LastCapture` takes them (at f22c487785a4): before each
+    LIO step program's call in a sampled frame, its state and inputs are
+    cloned on the card (a copy on the card costs the traced frame far less
+    than one to the host); after the window its function runs once on the
+    clones in capture form (each loop round and both branches) with the
+    kernel's entries spied, and each launch's inputs are counted by
+    `gen/roofline.py` in order.  A graph with conditional nodes launches
+    only the rounds and branches that ran, so `pair_roofline` matches each
+    call's spied launches with the kernels the trace shows for it, by
+    entry."""
 
     ENTRIES = ("knn_plane_assoc", "knn_plane_rows")
 
     def __init__(self):
-        self.samples: list = []     # (program, state, inputs) clones
-        self.armed = False
+        self.samples: list = []     # (frame, program, state, inputs)
+        self.frame = None           # the sampled frame, or None
         self._orig = None
 
     def __enter__(self):
@@ -186,8 +193,8 @@ class Roofline:
         orig = self._orig = graphs.Program.__call__
 
         def call(prog):
-            if self.armed and prog.name.startswith("lio_step"):
-                self.samples.append((prog, graphs.tree_map(
+            if self.frame is not None and prog.name.startswith("lio_step"):
+                self.samples.append((self.frame, prog, graphs.tree_map(
                     torch.clone, prog.state), graphs.tree_map(
                         torch.clone, prog.inputs)))
             return orig(prog)
@@ -198,14 +205,15 @@ class Roofline:
         from sr_livo_tpu_torch.utils import graphs
         graphs.Program.__call__ = self._orig
 
-    def bounds(self) -> List[List[tuple]]:
-        """Per sample, (entry, bound ms) of each launch in order."""
+    def bounds(self) -> List[tuple]:
+        """Per sampled call, in order: (frame, [(entry, bound ms) of each
+        launch in order])."""
         from livo_bench.gen.roofline import fused_bound_ms
         from sr_livo_tpu_torch.ops import plane_fit
         from sr_livo_tpu_torch.utils import graphs
 
         out = []
-        for prog, state, inputs in self.samples:
+        for frame, prog, state, inputs in self.samples:
             seen: list = []
             origs = {e: getattr(plane_fit, e) for e in self.ENTRIES}
 
@@ -223,15 +231,14 @@ class Roofline:
             finally:
                 for e, f in origs.items():
                     setattr(plane_fit, e, f)
-            out.append(seen)
+            out.append((frame, seen))
         return out
 
 
-def read_profile(prof, roof: "Roofline", roof_frames: List[int],
-                 traced: Traced) -> None:
+def read_profile(prof, roof: "Roofline", traced: Traced) -> None:
     """Into `traced`: the device's busy and window seconds and the
-    breakdown of the profiled frames, and each sampled frame's plane
-    kernel launches paired with their bounds."""
+    breakdown of the profiled frames, and the sampled calls' plane kernel
+    launches paired with their bounds."""
     from livo_bench.gen import profile as gp
 
     dev_ev, host_ev = gp.split(prof.events())
@@ -240,20 +247,50 @@ def read_profile(prof, roof: "Roofline", roof_frames: List[int],
     traced.busy_s, traced.window_s = busy_us / 1e6, (hi - lo) / 1e6
     traced.breakdown = {"device_ops": gp.top_ops(dev_ev, lo, hi),
                         "idle_gaps": gp.idle_gaps(host_ev, gaps)}
-    ranges = {int(n.rsplit(".", 1)[1]): (a, b) for a, b, n in host_ev
+    traced.roofline.extend(pair_roofline(roof.bounds(), dev_ev, host_ev))
+
+
+def pair_roofline(calls: List[tuple], dev_ev: list, host_ev: list
+                  ) -> List[tuple]:
+    """(bound ms, kernel ms) of each sampled launch that the trace shows.
+    `calls` are `Roofline.bounds()`: (frame, [(entry, bound ms)]) of each
+    sampled LIO step call, in order.  The i-th sampled call of frame f is
+    the i-th range of stage `lio_step` inside the range of frame f: the
+    synchronizing timers close the stage after the step's kernels end, so
+    they start inside it.  Of an entry whose kernels the trace shows n
+    times in a call, the first n spied launches pair with them in order
+    (a conditional node launches the rounds and the branch that ran, which
+    the masked form runs first).  A frame or a call that does not match is
+    left out, with a note on standard error."""
+    frames = {int(n.rsplit(".", 1)[1]): (a, b) for a, b, n in host_ev
               if n.startswith("livo_bench.frame.")}
-    for fi, launches in zip(roof_frames, roof.bounds()):
-        a, b = ranges.get(fi, (0.0, -1.0))
-        # the step's launches come first in the frame
-        ks = [(kb - ka) / 1e3 for ka, kb, n in dev_ev if a <= ka <= b
-              and any(e + "_kernel" in n for e in Roofline.ENTRIES)]
-        ks = ks[:len(launches)]
-        if len(ks) != len(launches):
-            log(f"roofline: frame {fi}: {len(launches)} launches counted, "
-                f"{len(ks)} kernels traced; not paired")
+    steps = [(a, b) for a, b, n in host_ev if n == STEP_RANGE]
+    kernels = [(ka, (kb - ka) / 1e3, e) for ka, kb, n in dev_ev
+               for e in Roofline.ENTRIES if e + "_kernel" in n]
+    by_frame: Dict[int, list] = defaultdict(list)
+    for frame, launches in calls:
+        by_frame[frame].append(launches)
+    out = []
+    for frame, frame_calls in sorted(by_frame.items()):
+        fa, fb = frames.get(frame, (0.0, -1.0))
+        ranges = [(a, b) for a, b in steps if fa <= a and b <= fb]
+        if len(ranges) != len(frame_calls):
+            log(f"roofline: frame {frame}: {len(frame_calls)} step calls "
+                f"sampled, {len(ranges)} traced; not paired")
             continue
-        traced.roofline.extend((bound, ms) for (_, bound), ms
-                               in zip(launches, ks))
+        for k, ((a, b), launches) in enumerate(zip(ranges, frame_calls)):
+            spied = {e: [bound for name, bound in launches if name == e]
+                     for e in Roofline.ENTRIES}
+            seen = {e: [t for ka, t, name in kernels if name == e
+                        and a <= ka <= b] for e in Roofline.ENTRIES}
+            if any(len(seen[e]) > len(spied[e]) for e in Roofline.ENTRIES):
+                log(f"roofline: frame {frame}, call {k}: launches counted "
+                    f"{ {e: len(v) for e, v in spied.items()} }, traced "
+                    f"{ {e: len(v) for e, v in seen.items()} }; not paired")
+                continue
+            for e in Roofline.ENTRIES:
+                out.extend(zip(spied[e], seen[e]))
+    return out
 
 
 def load_readers(names: List[str]) -> Dict[str, object]:
@@ -366,10 +403,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     classes: List[str] = []
     attempted = completed = failed = 0
     n_registered_fail = 0
+    poses: List[int] = []        # each frame's poses
+    # every pose of the window in order; a frame that yields none, None
     window_records: List[object] = []
     open_seg: List[check.Segment] = []
     paused = 0.0                 # seconds the check's copies took
-    seen_replays: Dict[object, int] = {}    # LIO step programs' replays
+    # the step programs' replays before the window (the timers synchronize,
+    # so every earlier replay is logged by now)
+    log_start = len(graphs.stage_log()) if trace else 0
     if roof is not None:
         roof.__enter__()
     setup_s = time.perf_counter() - t_start
@@ -402,7 +443,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
             if timers is not None:
                 timers.frame = i
             if roof is not None:
-                roof.armed = i in roof_frames
+                roof.frame = i if i in roof_frames else None
             dense0 = getattr(pipe, "n_dense_sweeps", 0)
             n_rec = len(pipe.records)
             ctx = (torch.autograd.profiler.record_function(
@@ -411,25 +452,26 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
             t_due = time.perf_counter()
             with ctx:
                 check.feed(pipe, f)
-                recs = pipe.records       # the pose, on the host
+                recs = pipe.records       # the poses, on the host
             t_done = time.perf_counter()
             attempted += 1
             lat.append(t_done - t_due)
-            if len(recs) > n_rec:
+            new = recs[n_rec:]
+            poses.append(len(new))
+            if new:
                 if t_done <= t_end:
-                    completed += 1
-                rec = recs[-1]
-                n_registered_fail += int(not rec.success)
-                window_records.append(rec)
+                    completed += len(new)
+                n_registered_fail += sum(not r.success for r in new)
             else:
                 failed += 1
-                window_records.append(None)
+            frame_records = new or [None]
+            window_records.extend(frame_records)
             if open_seg:
                 t_p = time.perf_counter()
                 for seg in list(open_seg):
                     seg.frames.append(f)
+                    seg.records.extend(frame_records)
                     if len(seg.frames) == seg.length:
-                        seg.records = window_records[-seg.length:]
                         seg.post = snapshot.snap(pipe)
                         open_seg.remove(seg)
                 dt = time.perf_counter() - t_p
@@ -437,12 +479,6 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                 t_end += dt
             classes.append(frame_class(
                 getattr(pipe, "n_dense_sweeps", 0) > dense0, f.rendered))
-            if trace:
-                for key, prog in pipe.engine.programs.items():
-                    replays = getattr(prog, "replays", 0)
-                    if replays and seen_replays.get(key) != replays:
-                        seen_replays[key] = replays
-                        traced.step_stages.append(prog.stage_ms())
             if prof is not None and i == prof_hi - 1:
                 win_range.__exit__(None, None, None)
                 prof.__exit__(None, None, None)
@@ -461,6 +497,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_reserved(dev) if cuda else 0
+    if trace:
+        # every LIO step replay of the window, each sweep's
+        traced.step_stages = [d for name, d in graphs.stage_log()[log_start:]
+                              if name.startswith("lio_step")]
     captures_window = n_captures(pipe) - captures_warm
     found = forbidden_modules()
 
@@ -476,16 +516,17 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     log(f"checked segments start at window frames "
         f"{[s.start for s in segments]}; their copies stopped the window's "
         f"clock for {paused:.3f} s")
-    log(f"window: {attempted} frames handed over, {completed} posed within "
-        f"{seconds:g} s, {failed} never posed, {n_registered_fail} flagged "
-        f"failed registrations, {captures_window} programs captured in the "
-        f"window")
+    log(f"window: {attempted} frames handed over, {completed} poses within "
+        f"{seconds:g} s, {failed} frames never posed, {n_registered_fail} "
+        f"flagged failed registrations, {captures_window} programs captured "
+        f"in the window; frames by their poses: "
+        f"{dict(sorted(Counter(poses).items()))}")
     log(f"frame classes: {dict(counts)}; p99 {1e3 * p99:.2f} ms, frames "
         f"beyond it: {dict(tail)}; median {1e3 * percentile(lat, 50):.2f} ms")
     if trace:
         traced.timer_calls = list(timers.calls)
         if prof_done is not None:
-            read_profile(prof_done, roof, sorted(roof_frames), traced)
+            read_profile(prof_done, roof, traced)
 
     # 5. the check, with the program freed
     gc.unfreeze()
@@ -506,7 +547,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         log(f"forbidden modules loaded: {found}")
     return {"correct": correct, "attempted": attempted, "failed": failed,
             "setup_s": setup_s, "window_s": window_s, "completed": completed,
-            "latencies": lat, "peak_reserved": peak, "traced": traced,
+            "latencies": lat, "poses": poses, "peak_reserved": peak,
+            "traced": traced,
             "numbers": numbers, "limits": limits, "forbidden": found,
             "control": result.get("control"),
             "per_segment": result["per_segment"]}

@@ -1,6 +1,8 @@
 """iekf_ms: device ms of the IEKF inside the LIO step's graph, per sweep:
 the span between the events `graphs.mark` records at the `iekf` and
-`insert` stages (`Program.stage_ms`), read after each replay."""
+`insert` stages, over every LIO step replay of the traced window (the
+harness takes them from `graphs.stage_log()`: a frame with a gap-fill
+sweep replays the step more than once)."""
 
 from livo_bench.metrics._stages import mean
 

@@ -1,6 +1,7 @@
 """plane_fit.roofline_pct: the plane kernel's share of its roofline in the
-LIO step: over sampled launches, the least time their inputs need
-(`gen/roofline.py`) over the launches' own device time in the trace."""
+LIO step: over the sampled frames' step calls, the least time of each
+launch the trace shows (`gen/roofline.py`, paired by entry within its
+call, `harness.pair_roofline`) over the launches' own device time."""
 
 
 def read(traced):

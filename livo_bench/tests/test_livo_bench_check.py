@@ -21,7 +21,7 @@ from livo_bench.tests import tiny
 
 def run_tiny(fault=None, device="cpu", control=False, seed=12345):
     torch.set_num_threads(4)
-    return harness.run("r3live_odom.livo", seed, 3.0, False, device=device,
+    return harness.run("r3live_odom.livo", seed, 6.0, False, device=device,
                        spec=tiny.spec(), fault=fault, control=control)
 
 
@@ -127,6 +127,44 @@ def test_pose_numbers_by_hand():
     assert check.pose_numbers(a, b[:2])["pose_m"] == math.inf
     lim = {"pose_m": 1e-3, "rot_rad": 1e-2}
     assert check.judge(n, lim) and not check.judge({"pose_m": 0.0}, lim)
+
+
+def test_track_numbers_name_points_by_cell():
+    """Tracks pair by slot and by the map point their registry row holds:
+    a row held by one side only shifts the other's later ids, and the same
+    id on another point is not the same track."""
+    pts = torch.tensor([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0], [7.0, 8.0, 9.0],
+                        [2.0, 9.0, 4.0]])
+    extra = torch.tensor([[5.0, 5.0, 5.0]])
+
+    def registry(p):
+        reg = torch.zeros((8, 16))
+        reg[:len(p), 6:9] = p
+        reg[:len(p), 15] = 1.0
+        return reg, len(p)
+
+    # side a holds one row more, after its first: later ids shift by one
+    color_a = registry(torch.cat([pts[:1], extra, pts[1:]]))
+    color_b = registry(pts)
+    px_a = torch.tensor([[10.0, 10.0], [20.0, 20.0], [30.0, 30.0],
+                         [40.0, 40.0]])
+    px_b = px_a + torch.tensor([[0.01, 0.0], [0.0, 0.02], [300.0, 0.0],
+                                [0.0, 0.0]])
+    # slot 0: point 0 on both (ids 0, 0); slot 1: point 1 (ids 2, 1);
+    # slot 2: id 3 on both, point 2 on a and point 3 on b; slot 3: live on
+    # a alone
+    tracks_a = (torch.tensor([0, 2, 3, 4], dtype=torch.int32), px_a,
+                torch.tensor([True, True, True, True]))
+    tracks_b = (torch.tensor([0, 1, 3, 2], dtype=torch.int32), px_b,
+                torch.tensor([True, True, True, False]))
+    va = {"color": color_a, "tracks": tracks_a}
+    vb = {"color": color_b, "tracks": tracks_b}
+    n = check.compare(([], va), ([], vb), 0.05)
+    assert n["track_px"] == pytest.approx(0.02, abs=1e-5)
+    # one slot's pixel moved on the same point: read
+    moved = (tracks_b[0], px_b + torch.tensor([0.0, 1.0]), tracks_b[2])
+    n = check.compare(([], va), ([], dict(vb, tracks=moved)), 0.05)
+    assert n["track_px"] == pytest.approx(1.02, abs=1e-5)
 
 
 def test_ate_by_hand():

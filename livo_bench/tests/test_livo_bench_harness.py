@@ -112,16 +112,19 @@ def test_per_layer_readers_arithmetic():
     assert "vision_frame_ms" not in m
 
 
-@pytest.fixture(scope="module")
-def tiny_traffic():
+@pytest.fixture(scope="module", params=["livox", "ouster"])
+def tiny_traffic(request):
+    """The tiny Livox cell's traffic (LiDAR and camera at 10 Hz) or the
+    tiny spinning cell's (an Ouster at 20 Hz, the camera at 10 Hz)."""
     from livo_bench.ref.config import load_config
-    wl, config, mix, limits = tiny.spec()
+    spec = tiny.spec if request.param == "livox" else tiny.spinning_spec
+    wl, config, mix, limits = spec()
     cfg = harness.make_config(config, load_config)
-    return traffic.build(mix, cfg.lidar_options, 7, device="cpu"), mix
+    return traffic.build(mix, cfg.lidar_options, 7, device="cpu"), mix, cfg
 
 
 def test_lap_replay_stamps_increase(tiny_traffic):
-    tr, mix = tiny_traffic
+    tr, mix, _ = tiny_traffic
     it = tr.frames()
     frames = [next(it) for _ in range(len(tr.prefix) + 2 * len(tr.lap) + 3)]
     last = {"imu": -1.0, "pts": -1.0, "img": -1.0}
@@ -141,7 +144,7 @@ def test_lap_replay_stamps_increase(tiny_traffic):
 
 
 def test_lap_seam_is_continuous(tiny_traffic):
-    tr, mix = tiny_traffic
+    tr, mix, _ = tiny_traffic
     traj = traffic.trajectory(mix["trajectory"])
     t = np.linspace(mix["lap_start_s"], mix["lap_start_s"] + 1.0, 11)
     assert np.allclose(traj.position(t), traj.position(t + tr.lap_s),
@@ -162,9 +165,7 @@ def test_lap_seam_is_continuous(tiny_traffic):
 
 
 def test_seed_changes_noise_not_work(tiny_traffic):
-    from livo_bench.ref.config import load_config
-    tr, mix = tiny_traffic
-    cfg = harness.make_config(tiny.spec()[1], load_config)
+    tr, mix, cfg = tiny_traffic
     other = traffic.build(mix, cfg.lidar_options, 2 ** 31 + 11, device="cpu")
     assert len(other.prefix) == len(tr.prefix)
     assert len(other.lap) == len(tr.lap)
@@ -174,6 +175,73 @@ def test_seed_changes_noise_not_work(tiny_traffic):
     imu_a = [p[1] for k, p in a if k == "imu"]
     imu_b = [p[1] for k, p in b if k == "imu"]
     assert not np.allclose(imu_a, imu_b)
+
+
+def test_frame_rule_by_hand(tiny_traffic):
+    """Frame k holds the LiDAR packets up to and including the first whose
+    points pass image k's time, and the IMU samples up to that packet's
+    end.  On the Livox cell, whose LiDAR runs at the camera's rate, that
+    end is LIDAR_T0 + (k + 2) * lidar_dt: packet k + 1 holds image k."""
+    tr, mix, _ = tiny_traffic
+    lidar_dt = 1.0 / mix["rates_hz"]["lidar"]
+    per_image = round(mix["rates_hz"]["lidar"] / mix["rates_hz"]["camera"])
+    frames = tr.prefix + tr.lap
+    prev_cut = -1.0
+    for k, f in enumerate(frames):
+        pkts = [p for kind, p in f.events if kind == "pts"]
+        imu_t = [p[0] for kind, p in f.events if kind == "imu"]
+        # the packet over image k passes it and ends the frame
+        j = int((f.time_image - traffic.LIDAR_T0) / lidar_dt)
+        end = traffic.LIDAR_T0 + (j + 1) * lidar_dt
+        assert pkts[-1][-1, 3] > f.time_image
+        assert all(p[-1, 3] <= f.time_image for p in pkts[:-1])
+        assert pkts[-1][0, 3] >= traffic.LIDAR_T0 + j * lidar_dt - 1e-9
+        # the IMU is cut 1 ns short of the packet's end (its stamps carry
+        # the simulator's summed round-off)
+        cut = end - 1e-9
+        assert max(imu_t) <= cut and min(imu_t) > prev_cut
+        if per_image == 1:
+            assert end == pytest.approx(traffic.LIDAR_T0
+                                        + (k + 2) * lidar_dt)
+        if k:
+            # every packet after the previous frame's is handed over
+            assert pkts[0][0, 3] >= prev_cut
+            assert len(pkts) == per_image
+        prev_cut = cut
+
+
+def test_roofline_pairs_by_entry_within_each_call(monkeypatch):
+    """A fake trace: frame 7 calls the step twice, the first call skips the
+    retry (one `knn_plane_assoc` traced of the two spied), the second takes
+    it; a plane kernel outside the step ranges is left alone; frame 8's
+    sampled call finds no step range and is left out; frame 9's search
+    mode traces 2 of the 4 `knn_plane_rows` rounds spied."""
+    monkeypatch.setattr(harness, "log", lambda msg: None)
+    a, r = "void knn_plane_assoc_kernel<20>(...)", "knn_plane_rows_kernel"
+    host = [(0.0, 100.0, "livo_bench.frame.7"),
+            (1.0, 20.0, harness.STEP_RANGE), (30.0, 60.0, harness.STEP_RANGE),
+            (61.0, 90.0, "livo_bench.stage.vision_frame"),
+            (100.0, 150.0, "livo_bench.frame.8"),
+            (200.0, 300.0, "livo_bench.frame.9"),
+            (201.0, 250.0, harness.STEP_RANGE)]
+    dev = [(5.0, 7.0, "other"), (8.0, 10.0, a),
+           (35.0, 38.0, a), (40.0, 44.0, a), (70.0, 71.0, a),
+           (110.0, 111.0, a),
+           (210.0, 215.0, r), (220.0, 226.0, r)]
+    calls = [(7, [("knn_plane_assoc", 0.1), ("knn_plane_assoc", 0.2)]),
+             (7, [("knn_plane_assoc", 0.3), ("knn_plane_assoc", 0.4)]),
+             (8, [("knn_plane_assoc", 0.5)]),
+             (9, [("knn_plane_rows", 0.6), ("knn_plane_rows", 0.7),
+                  ("knn_plane_rows", 0.8), ("knn_plane_rows", 0.9)])]
+    got = harness.pair_roofline(calls, dev, host)
+    assert got == [(0.1, 2e-3), (0.3, 3e-3), (0.4, 4e-3),
+                   (0.6, 5e-3), (0.7, 6e-3)]
+    # more kernels traced than spied: the call is left out
+    calls[0] = (7, [("knn_plane_assoc", 0.1)])
+    host[2] = (1.0, 50.0, harness.STEP_RANGE)
+    host[3] = (55.0, 60.0, harness.STEP_RANGE)
+    got = harness.pair_roofline(calls[:2], dev, host)
+    assert got == []
 
 
 def test_roofline_bound_hand_count():

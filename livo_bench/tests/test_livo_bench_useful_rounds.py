@@ -109,9 +109,9 @@ def test_tiny_traced_run_reads_every_round_useful(monkeypatch):
     from sr_livo_tpu_torch.utils import graphs
     monkeypatch.setattr(lio, "active_rounds", graphs.DeviceCount())
     torch.set_num_threads(4)
-    out = harness.run("r3live_odom.livo", 2 ** 31 + 5, 3.0, True,
+    out = harness.run("r3live_odom.livo", 2 ** 31 + 5, 6.0, True,
                       device="cpu", spec=tiny.spec())
-    line = run.result_line("r3live_odom.livo", True, 3.0, out, "cpu")
+    line = run.result_line("r3live_odom.livo", True, 6.0, out, "cpu")
     value = line["metrics"][NAME]["value"]
     assert math.isfinite(value) and value == pytest.approx(100.0)
     assert lio.active_rounds.added() > 0

@@ -1,6 +1,9 @@
-"""A tiny cell for the CPU tests: the r3live_odom deployment's YAML and
-switches on narrow shapes (30 x 40 images, a 40 x 30 ray cone, a 4 s
-lap), small enough for the plain path on the CPU."""
+"""Tiny cells for the CPU tests, small enough for the plain path on the
+CPU: the r3live_odom deployment's YAML and switches on narrow shapes (30
+x 40 images, a 40 x 30 ray cone, a 4 s lap), and a spinning one, the
+NTU-VIRAL profile's YAML (`configs/ntu.yaml`: an Ouster OS1-16 at 20 Hz,
+the camera at 10 Hz) with a 16-ring Ouster of a few dozen azimuths on
+the same narrow shapes."""
 
 import copy
 import json
@@ -8,6 +11,7 @@ import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.dirname(HERE)
+NTU_YAML = os.path.join(os.path.dirname(BENCH), "configs", "ntu.yaml")
 
 
 def _load(*parts):
@@ -57,4 +61,29 @@ def spec(config_name: str = "r3live_odom", mix_name: str = "livo",
     limits["ate_m"] = 0.5
     wl = {"name": workload, "config": config_name, "traffic": mix_name,
           "chips": 1}
+    return wl, config, mix, limits
+
+
+def spinning_spec(n_az: int = 64):
+    """(workload entry, configuration, mix, limits) of the tiny spinning
+    cell: `configs/ntu.yaml` with the tiny cell's shapes and switches, a
+    16-ring staggered Ouster of `n_az` azimuths at 20 Hz, the camera at 10
+    Hz, the gate's `standard_lowyaw` trajectory at frequencies that divide
+    the 4 s lap.  Each frame yields two sweeps: a gap-fill sweep without
+    an image, then the image-aligned one."""
+    import yaml
+
+    wl, config, mix, limits = spec()
+    with open(NTU_YAML) as f:
+        config["yaml"] = yaml.safe_load(f)
+    ext = config["yaml"]["extrinsic_parameter"]
+    mix["calib"]["r_ic"] = [ext["extrinsic_R_imu_camera"][i:i + 3]
+                            for i in (0, 3, 6)]
+    mix["calib"]["t_ic"] = ext["extrinsic_t_imu_camera"]
+    mix["calib"]["cam_time_offset"] = 0.004
+    mix["rates_hz"]["lidar"] = 20
+    mix["lidar"] = {"kind": "ouster", "n_az": n_az, "n_rings": 16,
+                    "ring_stagger": True}
+    mix["trajectory"].update({"yaw_amp": 0.5})
+    wl = dict(wl, name="ntu_tiny.livo", config="ntu_tiny")
     return wl, config, mix, limits
