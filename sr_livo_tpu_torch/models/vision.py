@@ -425,7 +425,10 @@ class VisionModule:
 
 def gated_color_insert(cmap, pts_world, frame_valid, success, obs_time, *,
                        step, voxel_size, min_distance, max_probe, budget):
-    """success gate + add_point_step stride + color_insert."""
+    """success gate + add_point_step stride + color_insert.  Its ranges
+    in a program captured with stage events (`graphs.mark`): `gate`, then
+    `color_insert`'s `claim` and `write`."""
+    graphs.mark("gate")
     valid = frame_valid & success
     if step > 1:
         pts_world = pts_world[::step]

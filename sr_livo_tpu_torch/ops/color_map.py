@@ -211,9 +211,13 @@ def color_insert(cmap: ColorMap, pts: torch.Tensor, valid: torch.Tensor,
     dev = pts.device
     b = n if budget is None else min(budget, n)
 
+    # ranges in a program captured with stage events: the dedup claim
+    # rounds, then the registry and voxel-table writes
+    graphs.mark("claim")
     dd_coords = vm.voxel_coords(pts, min_distance)
     dedup_sig, is_new = _claim_dedup(cmap.dedup_sig, dd_coords, valid,
                                      max_probe)
+    graphs.mark("write")
 
     # Compact dedup winners to the budget (stable by index): registry ids
     # are consecutive in compacted order.

@@ -308,6 +308,7 @@ def test_replaced_state_is_copied_before_the_replay(cuda):
 
 VISION_RANGES = ["preprocess", "pyramid", "lk", "f_ransac", "pnp_ransac",
                  "vio_esikf", "vio_photometric", "render", "tracks"]
+INSERT_RANGES = ["gate", "claim", "write"]
 
 
 def _livo(cuda, sim, events: bool, timers=None):
@@ -331,7 +332,8 @@ def test_stage_events_add_only_their_marks(cuda, sim):
     for each of its replays.  The step program with them on counts its
     IEKF's active rounds in the steady phase, at most the rounds it
     counted, all of them launched (and no other), fewer than the rounds
-    run in both phases."""
+    run in both phases.  The colored-map insert program with them on holds
+    its three ranges (gate, claim, write) and no other added node."""
     off = _livo(cuda, sim, False)
     n_log = len(graphs.stage_log())
     graphs.settle_counts()
@@ -356,6 +358,14 @@ def test_stage_events_add_only_their_marks(cuda, sim):
     assert 0 < active <= added and active == launched < run
     for key, prog in off.engine.programs.items():
         assert on.engine.programs[key].nodes > prog.nodes
+    # the colored-map insert program: its three ranges and nothing else
+    assert off.vision.insert_programs.keys() == on.vision.insert_programs.keys()
+    for key, prog in off.vision.insert_programs.items():
+        p = on.vision.insert_programs[key]
+        assert prog.marks == [] and p.nodes - prog.nodes == len(p.marks) == 4
+        assert list(p.stage_ms()) == INSERT_RANGES
+        log = [d for name, d in graphs.stage_log()[n_log:] if name == p.name]
+        assert log and all(list(d) == INSERT_RANGES for d in log)
 
 
 def test_spans_on_the_card(cuda, sim):
